@@ -4,22 +4,35 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card (Hopper,
-sm_90a), nvcc and g++. Phases, in order; any failure exits non-zero:
+sm_90a), nvcc and g++. Phases, in order; any failure exits non-zero, and
+each phase prints its seconds:
 
   1. environment: torch, the card, its power limit; build every kernel of
-     the main path from the checkout's sources (csrc/*.cu with nvcc, the
-     native host kernels with g++);
-  2. each kernel against its plain-torch version on the card, on
-     Morton-sorted ranges (uniform up to 1.5M points, clustered,
-     duplicates, a ::3 analyze mask), in both precision modes; masks must
-     be equal exactly, and the f64 masks must equal the native host kernel;
-  3. the main path: a 10M-point uniform LAS tiled at the defaults (FAST,
-     MIN_DISTANCE, 3D Tiles, 20,000 points per node, spacing =
-     diagonal/250) with use_device="cuda" and on the host; the two output
+     the port from the checkout's sources, all at once (csrc/poisson.cu and
+     csrc/morton.cu with nvcc, the native host kernels with g++);
+  2. each kernel against its plain-torch version on the card: K2 (Poisson)
+     on Morton-sorted ranges (uniform up to 1.5M points, clustered,
+     duplicates, a ::3 analyze mask) in both precision modes, its f64 masks
+     also against the native host kernel; K1 (Morton interleave) on 10M and
+     10,000,001 random coordinates with one-hot edge rows, also against the
+     host encode, timed with CUDA events. Results must be equal exactly;
+  3. the MIN_DISTANCE main path (kernel K2): a 10M-point uniform LAS tiled
+     at the defaults (FAST, MIN_DISTANCE, 3D Tiles, 20,000 points per node,
+     spacing = diagonal/250) with use_device="cuda" and on the host; the
      trees must be byte-identical (properties.json up to its two timing
      fields), every tile must hold finite positions, the tiles must hold at
-     least every input point, and the kernel must have been launched;
-  4. the summary: one JSON line per the kernels, then the result line.
+     least every input point, and K2 must have been launched;
+  4. the batch step (kernel K1): 10M uniform float64 positions through
+     encode_sort_batch on the card and the host grid coordinates through
+     encode_sort_grid, against the host encode + sort + histogram; the
+     port's entry() on the card against the CPU; K1 must have been launched;
+  5. the grid samplers' main path (the octree sweep): a 10M-point clustered
+     LAS (250 Gaussian clusters) tiled with RANDOM_GRID, and a 1M-point one
+     (25 clusters) with GRID_CENTER and JITTERED, each with
+     use_device="cuda" and on the host; byte-identical trees, device sweeps
+     persisted, fresh start nodes above 20,000 points, no re-rooted range,
+     and levels assigned at 3 or more depths;
+  6. the summary: one JSON line for the kernels, then the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -36,7 +49,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MAIN_PATH_POINTS = 10_000_000   # the reference's default batch
-TIMING_CASE = "uniform_262144"  # the kernel row's ms / plain_ms
+GRID_SMALL_POINTS = 1_000_000   # GRID_CENTER and JITTERED runs
+TIMING_CASE = "uniform_262144"  # the K2 row's ms / plain_ms
+K1_SIZES = (10_000_000, 10_000_001)
 
 
 def fail(msg: str) -> int:
@@ -55,6 +70,37 @@ def synced(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def median_ms(fn, reps: int = 3):
+    """(last result, median ms of `reps` synced runs after a warm-up)."""
+    synced(fn)
+    times = []
+    for _ in range(reps):
+        out, ms = synced(fn)
+        times.append(ms)
+    return out, sorted(times)[reps // 2]
+
+
+def event_ms(fn, launches: int = 20, reps: int = 3):
+    """(last result, median over `reps` windows of the mean ms per launch)
+    of fn, timed with CUDA events around `launches` back-to-back launches,
+    after a warm-up: for kernels too short for the host clock."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(launches):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return out, sorted(times)[reps // 2]
+
+
 def sorted_range(pos, extent):
     """Clamp, Morton-encode and sort a cloud with the port's indexing."""
     import numpy as np
@@ -67,7 +113,44 @@ def sorted_range(pos, extent):
     return clamped[order]
 
 
-def kernel_cases():
+# -- phase 1: build --------------------------------------------------------------
+
+def phase_build() -> None:
+    """Build the native host kernels and every CUDA source in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from schwarzwald_tpu_torch import native
+    from schwarzwald_tpu_torch.ops import _cuda_build, morton_cuda, poisson_cuda
+
+    def build_native():
+        t0 = time.perf_counter()
+        if native._lib() is None:
+            raise RuntimeError("native host kernels did not build")
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(3) as pool:
+        host = pool.submit(build_native)
+        cuda = [pool.submit(_cuda_build.load_kernel_library, name)
+                for name in ("poisson", "morton")]
+        seconds = host.result()
+        for f in cuda:
+            f.result()
+    print(f"build: native host kernels {seconds:.1f} s", flush=True)
+    for precision in ("f64", "f32"):
+        poisson_cuda._kernel_fn(precision)
+    morton_cuda._kernel_fn()
+    for name in ("poisson", "morton"):
+        info = _cuda_build.build_info[name]
+        print(f"build: csrc/{name}.cu {info['seconds']:.1f} s (nvcc "
+              f"{' '.join(_cuda_build.NVCC_FLAGS)})", flush=True)
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+
+
+# -- phase 2: kernels against their plain versions ---------------------------------
+
+def poisson_cases():
     """(name, sorted positions, spacing, analyze mask, extent)."""
     import numpy as np
 
@@ -93,8 +176,8 @@ def kernel_cases():
     return cases
 
 
-def phase_kernels(report: dict) -> None:
-    """Kernel vs plain version (and vs native in f64) on the card."""
+def phase_poisson_kernel(report: dict) -> None:
+    """K2 vs its plain version (and vs native in f64) on the card."""
     import numpy as np
     import torch
 
@@ -102,11 +185,9 @@ def phase_kernels(report: dict) -> None:
     from schwarzwald_tpu_torch.ops import poisson_cuda
 
     host_kernel = native.poisson_sample_kernel()
-    if host_kernel is None:
-        raise RuntimeError("native host kernels did not build")
     dev = torch.device("cuda")
     max_err = 0
-    for name, pos, spacing, analyze, ext in kernel_cases():
+    for name, pos, spacing, analyze, ext in poisson_cases():
         native_mask = host_kernel(pos, np.zeros(3), np.full(3, ext), spacing,
                                   analyze)
         for precision in ("f64", "f32"):
@@ -118,29 +199,19 @@ def phase_kernels(report: dict) -> None:
                    else torch.from_numpy(p.analyze).to(dev))
             ptr = torch.from_numpy(p.pair_ptr).to(dev)
             bj = torch.from_numpy(p.pair_bj).to(dev)
-
-            def kernel():
-                return poisson_cuda.accept_mask_cuda(planes, ana, p.sq, ptr,
-                                                     bj)
-
-            synced(kernel)  # warm
-            times = []
-            for _ in range(3):
-                got, ms = synced(kernel)
-                times.append(ms)
-            k_ms = sorted(times)[1]
+            got, k_ms = median_ms(lambda: poisson_cuda.accept_mask_cuda(
+                planes, ana, p.sq, ptr, bj))
             want, plain_ms = synced(lambda: poisson_cuda.accept_mask_torch(
                 planes, ana, p.sq, ptr, bj))
             got = got.cpu().numpy()
             want = want.cpu().numpy()
             err = int(np.abs(got.astype(np.int16) - want).max())
             max_err = max(max_err, err)
-            line = (f"kernel poisson {name} {precision}: n={pos.shape[0]} "
-                    f"blocks={p.n_blocks} pairs/block="
-                    f"{p.pair_bj.size / p.n_blocks:.2f} "
-                    f"accepted={int(got.sum())} kernel_ms={k_ms:.3f} "
-                    f"plain_ms={plain_ms:.3f}")
-            print(line, flush=True)
+            print(f"kernel poisson {name} {precision}: n={pos.shape[0]} "
+                  f"blocks={p.n_blocks} pairs/block="
+                  f"{p.pair_bj.size / p.n_blocks:.2f} "
+                  f"accepted={int(got.sum())} kernel_ms={k_ms:.3f} "
+                  f"plain_ms={plain_ms:.3f}", flush=True)
             if err:
                 raise RuntimeError(f"{name} {precision}: kernel mask differs "
                                    f"from the plain version at "
@@ -155,17 +226,55 @@ def phase_kernels(report: dict) -> None:
     report["max_abs_err"] = max_err
 
 
-def write_uniform_las(path: str, n: int) -> None:
+def edge_coords(n: int, seed: int):
+    """(n,) int32 random 21-bit coordinates per axis whose first rows are
+    the one-hot edge rows (each bit alone, 0 and 2^21 - 1 on one axis,
+    the other two at 0)."""
     import numpy as np
 
-    from schwarzwald_tpu_torch.core.aabb import AABB
-    from schwarzwald_tpu_torch.core.pointbuffer import PointBuffer
-    from schwarzwald_tpu_torch.io import las
+    rng = np.random.default_rng(seed)
+    axes = [rng.integers(0, 1 << 21, n).astype(np.int32) for _ in range(3)]
+    oh = np.array([1 << i for i in range(21)] + [0, (1 << 21) - 1],
+                  dtype=np.int32)
+    for a in range(3):
+        for b in range(3):
+            axes[a][b * oh.size:(b + 1) * oh.size] = oh if a == b else 0
+    return axes
 
-    rng = np.random.default_rng(7)
-    las.write_las(path, PointBuffer(rng.uniform(1.0, 999.0, (n, 3))),
-                  AABB([0.0] * 3, [1000.0] * 3))
 
+def phase_morton_kernel(report: dict) -> None:
+    """K1 vs its plain version and the host encode on the card."""
+    import numpy as np
+    import torch
+
+    from schwarzwald_tpu_torch.core import morton
+    from schwarzwald_tpu_torch.ops import morton_cuda
+
+    max_err = 0
+    for n in K1_SIZES:
+        axes = edge_coords(n, n)
+        x, y, z = (torch.from_numpy(a).cuda() for a in axes)
+        got, k_ms = event_ms(lambda: morton_cuda.interleave_cuda(x, y, z))
+        want, plain_ms = event_ms(lambda: morton_cuda.interleave21(x, y, z))
+        err = int((got - want).abs().max())
+        max_err = max(max_err, err)
+        host = morton.from_grid_coords(*(a.view(np.uint32) for a in axes))
+        host_equal = np.array_equal(got.cpu().numpy().view(np.uint64), host)
+        # 12 bytes read and 8 written per point
+        print(f"kernel morton n={n}: kernel_ms={k_ms:.3f} "
+              f"({20 * n / k_ms / 1e6:.1f} GB/s) plain_ms={plain_ms:.3f} "
+              f"max_abs_err={err} host_equal={host_equal}", flush=True)
+        if err or not torch.equal(got, want):
+            raise RuntimeError(f"n={n}: K1 differs from its plain version")
+        if not host_equal:
+            raise RuntimeError(f"n={n}: K1 differs from the host encode")
+        if n == K1_SIZES[0]:
+            report["ms"] = k_ms
+            report["plain_ms"] = plain_ms
+    report["max_abs_err"] = max_err
+
+
+# -- output trees ------------------------------------------------------------------
 
 def tree_files(root: str) -> dict:
     out = {}
@@ -213,7 +322,21 @@ def count_points(root: str) -> int:
     return total
 
 
-def phase_main_path(work: str, report: dict, card: str) -> None:
+# -- phase 3: the MIN_DISTANCE main path --------------------------------------------
+
+def write_uniform_las(path: str, n: int) -> None:
+    import numpy as np
+
+    from schwarzwald_tpu_torch.core.aabb import AABB
+    from schwarzwald_tpu_torch.core.pointbuffer import PointBuffer
+    from schwarzwald_tpu_torch.io import las
+
+    rng = np.random.default_rng(7)
+    las.write_las(path, PointBuffer(rng.uniform(1.0, 999.0, (n, 3))),
+                  AABB([0.0] * 3, [1000.0] * 3))
+
+
+def phase_min_distance(work: str, report: dict, card: str) -> None:
     import schwarzwald_tpu_torch as sz
     from schwarzwald_tpu_torch.ops import poisson_cuda
 
@@ -239,16 +362,16 @@ def phase_main_path(work: str, report: dict, card: str) -> None:
     rates = {}
     for mode in ("cuda", "host"):
         out = os.path.join(work, f"out_{mode}")
-        poisson_cuda.reset_counters()
         ranges.clear()
         poisson_cuda.accept_mask = timed_accept_mask
+        poisson_cuda.reset_counters()
         t0 = time.perf_counter()
         try:
             sz.tile([src], out, use_device=None if mode == "host" else mode)
         finally:
+            seconds = time.perf_counter() - t0
+            counts = poisson_cuda.snapshot()
             poisson_cuda.accept_mask = accept_mask
-        seconds = time.perf_counter() - t0
-        counts = poisson_cuda.snapshot()
         rates[mode] = MAIN_PATH_POINTS / seconds
         print(f"main path {mode}: {seconds:.2f} s, "
               f"{rates[mode]:.0f} points/s on {card}; counters {counts}",
@@ -278,6 +401,200 @@ def phase_main_path(work: str, report: dict, card: str) -> None:
     print(f"main path: {n_files} files byte-identical (cuda vs host), "
           f"{n_points} points in the tiles; cuda/host rate "
           f"{rates['cuda'] / rates['host']:.3f}", flush=True)
+    shutil.rmtree(work)
+    os.makedirs(work)
+
+
+# -- phase 4: the batch step -------------------------------------------------------
+
+def phase_batch_step(report: dict, card: str) -> None:
+    """encode_sort_batch / encode_sort_grid at 10M points and entry() on
+    the card, against the host; K1's launches in this run are counted."""
+    import numpy as np
+    import torch
+
+    from schwarzwald_tpu_torch.core import morton
+    from schwarzwald_tpu_torch.entry import entry
+    from schwarzwald_tpu_torch.ops import device, indexing, morton_cuda
+
+    n, ext = MAIN_PATH_POINTS, 1000.0
+    pos = np.random.default_rng(11).uniform(0.0, ext, (n, 3))
+    bmin, bext = np.zeros(3), np.full(3, ext)
+    t0 = time.perf_counter()
+    host_keys, _ = indexing.index_points(pos.copy(), bmin, bmin + bext)
+    sk, order = indexing.sort_with_keys(host_keys)
+    hist = np.bincount(morton.truncate_to_level(sk, 2).astype(np.int64),
+                       minlength=512)
+    host_s = time.perf_counter() - t0
+    gx, gy, gz = (a.astype(np.uint32)
+                  for a in morton.grid_coords(host_keys, 21))
+    pos_t = torch.from_numpy(pos)
+
+    morton_cuda.reset_counters()
+    batch, ms = synced(lambda: device.encode_sort_batch(
+        pos_t, bmin, bext, level=3, device="cuda"))
+    grid, grid_ms = synced(lambda: device.encode_sort_grid(
+        gx, gy, gz, level=3, device="cuda"))
+    fn, args = entry("cuda")
+    (e_batch, e_levels), entry_ms = synced(lambda: fn(*args))
+    launches = morton_cuda.snapshot()["launches"]
+
+    for name, b in (("encode_sort_batch", batch), ("encode_sort_grid", grid)):
+        if not (np.array_equal(b.keys.cpu().numpy().view(np.uint64), sk)
+                and np.array_equal(b.order.cpu().numpy(), order)
+                and np.array_equal(b.node_histogram.cpu().numpy(), hist)):
+            raise RuntimeError(f"{name} on the card differs from the host "
+                               f"encode + sort + histogram")
+    fn_cpu, args_cpu = entry("cpu")
+    c_batch, c_levels = fn_cpu(*args_cpu)
+    for a, b in zip((*e_batch, e_levels), (*c_batch, c_levels)):
+        if not torch.equal(a.cpu(), b):
+            raise RuntimeError("entry() on the card differs from the CPU")
+    if not (c_levels > 0).all():
+        raise RuntimeError("entry() left points unassigned")
+    print(f"batch step n={n}: encode_sort_batch {ms:.1f} ms, "
+          f"encode_sort_grid {grid_ms:.1f} ms (host encode + sort + "
+          f"histogram {host_s * 1e3:.1f} ms) on {card}; entry() "
+          f"{entry_ms:.1f} ms, levels "
+          f"{sorted(set(c_levels.tolist()))}; K1 launches {launches}",
+          flush=True)
+    report["launches"] = launches
+    if launches <= 0:
+        raise RuntimeError("the batch step launched no Morton kernel")
+
+
+# -- phase 5: the grid samplers' main path ---------------------------------------------
+
+def write_clustered_las(path: str, n: int, seed: int) -> None:
+    """Gaussian clusters of 40,000 points and varying width (sigma 2 to 25
+    units) in the 1000-unit cube, as dense patches of an airborne scan:
+    start nodes above the 20,000-point take-all limit, so the sweep works
+    through several levels."""
+    import numpy as np
+
+    from schwarzwald_tpu_torch.core.aabb import AABB
+    from schwarzwald_tpu_torch.core.pointbuffer import PointBuffer
+    from schwarzwald_tpu_torch.io import las
+
+    rng = np.random.default_rng(seed)
+    k = max(1, n // 40_000)
+    centers = rng.uniform(50.0, 950.0, (k, 3))
+    sigmas = rng.uniform(2.0, 25.0, k)
+    counts = np.full(k, n // k)
+    counts[:n % k] += 1
+    pos = rng.normal(0.0, 1.0, (n, 3))
+    pos *= np.repeat(sigmas, counts)[:, None]
+    pos += np.repeat(centers, counts, axis=0)
+    np.clip(pos, 1.0, 999.0, out=pos)
+    las.write_las(path, PointBuffer(pos), AABB([0.0] * 3, [1000.0] * 3))
+
+
+def phase_grid_samplers(work: str, card: str) -> None:
+    import torch
+
+    from schwarzwald_tpu_torch.ops import device_tiling
+    from schwarzwald_tpu_torch.process.tiler_process import (TilerArguments,
+                                                             TilerProcess)
+    from schwarzwald_tpu_torch.tiling.engine import TilingAlgorithmFast
+
+    # observation only: the sweep's seconds and levels per group (with a
+    # synchronise, so the seconds are the device's), and the sizes of the
+    # fresh start nodes handed to the sweep
+    sweeps, fresh_sizes = [], []
+    select = device_tiling.octree_select_grid
+    pipelined = TilingAlgorithmFast._device_fresh_sweep_pipelined
+
+    def timed_select(key, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = select(key, *args, **kwargs)
+        torch.cuda.synchronize()
+        sweeps.append((key.shape[0], time.perf_counter() - t,
+                       torch.unique(out).tolist()))
+        return out
+
+    def observed_pipelined(self, arena, fresh, root, level):
+        fresh_sizes.extend(sn[1].size for sn in fresh)
+        return pipelined(self, arena, fresh, root, level)
+
+    sources = {}
+    for sampler, n, seed in (("RANDOM_GRID", MAIN_PATH_POINTS, 17),
+                             ("GRID_CENTER", GRID_SMALL_POINTS, 18),
+                             ("JITTERED", GRID_SMALL_POINTS, 18)):
+        src = sources.get(n)
+        if src is None:
+            src = sources[n] = os.path.join(work, f"clustered_{n}.las")
+            t0 = time.perf_counter()
+            write_clustered_las(src, n, seed)
+            print(f"grid samplers: wrote {n} clustered points in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rates = {}
+        for mode in ("cuda", "host"):
+            out = os.path.join(work, f"{sampler}_{mode}")
+            sweeps.clear()
+            fresh_sizes.clear()
+            device_tiling.octree_select_grid = timed_select
+            TilingAlgorithmFast._device_fresh_sweep_pipelined = \
+                observed_pipelined
+            proc = TilerProcess(TilerArguments(
+                sources=[src], output_directory=out, diagonal_fraction=250,
+                sampling_strategy=sampler,
+                use_device="cuda" if mode == "cuda" else None))
+            t0 = time.perf_counter()
+            try:
+                proc.run()
+            finally:
+                seconds = time.perf_counter() - t0
+                device_tiling.octree_select_grid = select
+                TilingAlgorithmFast._device_fresh_sweep_pipelined = pipelined
+            rates[mode] = n / seconds
+            stats = proc.device_stats
+            print(f"grid {sampler} {mode}: {seconds:.2f} s, "
+                  f"{rates[mode]:.0f} points/s on {card}; {stats}",
+                  flush=True)
+            if mode == "host":
+                if sweeps or stats["device_sweeps_ok"]:
+                    raise RuntimeError("the host run ran the device sweep")
+                continue
+            levels = sorted({lv for _, _, lvs in sweeps for lv in lvs})
+            big = sum(1 for s in fresh_sizes if s > 20_000)
+            print(f"grid {sampler} cuda: {len(fresh_sizes)} fresh start "
+                  f"nodes, {big} above 20,000 points (largest "
+                  f"{max(fresh_sizes, default=0)}); {stats['device_reroots']}"
+                  f" re-rooted groups; sweep levels (node level + 2) "
+                  f"{levels}", flush=True)
+            for g, (pts, s, _) in enumerate(sweeps):
+                print(f"grid {sampler} cuda: sweep group {g}: {pts} points "
+                      f"{s:.3f} s", flush=True)
+            if stats["device_sweeps_ok"] <= 0:
+                raise RuntimeError(f"{sampler}: no device sweep persisted")
+            if stats["device_reroots"]:
+                raise RuntimeError(f"{sampler}: a group hit the re-root rule")
+            if big == 0:
+                raise RuntimeError(f"{sampler}: no fresh start node above "
+                                   f"20,000 points")
+            if len([lv for lv in levels if lv > 0]) < 3:
+                raise RuntimeError(f"{sampler}: the sweep assigned fewer "
+                                   f"than 3 distinct levels")
+        n_files = compare_trees(os.path.join(work, f"{sampler}_cuda"),
+                                os.path.join(work, f"{sampler}_host"))
+        n_points = count_points(os.path.join(work, f"{sampler}_cuda"))
+        if n_points < n:
+            raise RuntimeError(f"{sampler}: tiles hold {n_points} points, "
+                               f"fewer than the {n} read")
+        print(f"grid {sampler}: {n_files} files byte-identical (cuda vs "
+              f"host), {n_points} points; cuda/host rate "
+              f"{rates['cuda'] / rates['host']:.3f}", flush=True)
+        for mode in ("cuda", "host"):
+            shutil.rmtree(os.path.join(work, f"{sampler}_{mode}"))
+
+
+# -- main --------------------------------------------------------------------------
+
+def timed_phase(name: str, fn, *args) -> None:
+    t0 = time.perf_counter()
+    fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -296,7 +613,6 @@ def main() -> int:
     if not os.path.abspath(schwarzwald_tpu_torch.__file__).startswith(
             ROOT + os.sep):
         return fail("schwarzwald_tpu_torch is not this checkout's")
-    from schwarzwald_tpu_torch.ops import _cuda_build, poisson_cuda
 
     card = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -307,38 +623,32 @@ def main() -> int:
           f"device {card} x{torch.cuda.device_count()}", flush=True)
     print(smi, flush=True)  # the card's name and power limit
 
-    t0 = time.perf_counter()
-    from schwarzwald_tpu_torch import native
-    if native._lib() is None:
-        return fail("native host kernels did not build")
-    print(f"build: native host kernels {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for precision in ("f64", "f32"):
-        poisson_cuda._kernel_fn(precision)
-    info = _cuda_build.build_info["poisson"]
-    print(f"build: csrc/poisson.cu {info['seconds']:.1f} s (nvcc "
-          f"{' '.join(_cuda_build.NVCC_FLAGS)})", flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
-
-    report = {"name": "poisson_accept_mask", "route": "cuda",
-              "source": "schwarzwald_tpu_torch/csrc/poisson.cu",
-              "replaces": "schwarzwald_tpu/ops/poisson_pallas.py:135",
-              "at": f"{TIMING_CASE} f64"}
-    phase_kernels(report)
+    k2 = {"name": "poisson_accept_mask", "route": "cuda",
+          "source": "schwarzwald_tpu_torch/csrc/poisson.cu",
+          "replaces": "schwarzwald_tpu/ops/poisson_pallas.py:135",
+          "at": f"{TIMING_CASE} f64"}
+    k1 = {"name": "morton_interleave", "route": "cuda",
+          "source": "schwarzwald_tpu_torch/csrc/morton.cu",
+          "replaces": "schwarzwald_tpu/ops/device.py:217",
+          "at": f"n={K1_SIZES[0]}"}
+    timed_phase("1 build", phase_build)
+    timed_phase("2 K2 vs plain", phase_poisson_kernel, k2)
+    timed_phase("2 K1 vs plain", phase_morton_kernel, k1)
 
     work = os.path.join(ROOT, ".chip_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        phase_main_path(work, report, f"{smi}")
+        timed_phase("3 MIN_DISTANCE main path", phase_min_distance, work, k2,
+                    smi)
+        timed_phase("4 batch step", phase_batch_step, k1, smi)
+        timed_phase("5 grid samplers", phase_grid_samplers, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    kernels = [{k: report[k] for k in ("name", "route", "source", "replaces",
-                                       "launches", "max_abs_err", "ms",
-                                       "plain_ms", "at")}]
+    kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
+                                  "launches", "max_abs_err", "ms",
+                                  "plain_ms", "at")} for r in (k1, k2)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

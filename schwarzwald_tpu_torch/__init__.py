@@ -3,10 +3,13 @@
 The PyTorch + CUDA port of `schwarzwald_tpu` for NVIDIA Hopper (H100). The
 host modules (I/O, Morton indexing, the tiling engine, the native C++
 kernels) are the JAX package's own, copied so this package never imports
-JAX; the device work of the default tiler run (the MIN_DISTANCE
-Poisson-disk accept mask of every large node range) is a hand-written CUDA
-kernel (csrc/poisson.cu, ops/poisson_cuda.py) selected with
-`--use-device cuda`. Output is byte-identical to the host run.
+JAX. `--use-device cuda` selects the device paths: the MIN_DISTANCE
+Poisson-disk accept mask of every large node range is a hand-written CUDA
+kernel (csrc/poisson.cu, ops/poisson_cuda.py), and the grid samplers'
+fresh octree assignment is a level-synchronous sweep in torch ops
+(ops/device_tiling.py). The batch step (ops/device.py, entry.py) runs the
+Morton interleave as a hand-written CUDA kernel (csrc/morton.cu,
+ops/morton_cuda.py). Output is byte-identical to the host run.
 
 Reference parity targets (cited throughout as reference file:line):
   - Octree structure & per-node point selection semantics:

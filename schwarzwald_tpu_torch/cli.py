@@ -109,10 +109,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(converter) delete source files once converted")
     p.add_argument("--use-device", default=None,
                    choices=["auto", "cpu", "cuda"],
-                   help="Device selection: cuda runs the MIN_DISTANCE "
-                        "Poisson kernel on the CUDA card, cpu its plain "
-                        "PyTorch version, auto cuda when a card is "
-                        "visible (host otherwise)")
+                   help="Device selection: cuda runs the grid samplers' "
+                        "octree sweep and the MIN_DISTANCE Poisson kernel "
+                        "on the CUDA card, cpu their plain PyTorch "
+                        "versions, auto cuda when a card is visible (host "
+                        "otherwise)")
     p.add_argument("--multichip", type=int, default=0,
                    help="Shard every batch's sort + octree split across an "
                         "N-device mesh (lossless all_to_all point exchange; "

@@ -3,9 +3,11 @@
 `nvcc` compiles each kernel source into a shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers: seconds per build, not
 minutes). The library lands in csrc/build/ and is rebuilt when its source
-is newer, the way native/loader.py treats the C++ host kernels. The build
-runs under a lock because the tiler's worker threads (and test processes)
-can reach the first use at the same time.
+is newer, the way native/loader.py treats the C++ host kernels. Each
+library builds under its own lock (threads of this process and other
+processes), because the tiler's worker threads and test processes can reach
+its first use at the same time, while different libraries may build in
+parallel.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false so nvcc never contracts a
 multiply and an add into an FMA: the kernels' distance tests must round
@@ -13,13 +15,16 @@ exactly as the host's.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
+import threading
 import time
 
-from ..native.loader import build_lock, is_fresh
+from ..native.loader import is_fresh
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -31,6 +36,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: dict = {}
 # name -> {"seconds": build wall time (0.0 when up to date), "log": ptxas}
 build_info: dict = {}
+_locks: dict = {}
+_locks_guard = threading.Lock()
+
+
+@contextlib.contextmanager
+def _library_lock(name: str):
+    """Exclusive per library, across the threads of this process and
+    across processes."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with lock, open(os.path.join(BUILD_DIR, f".{name}.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def nvcc_path() -> str:
@@ -52,7 +74,7 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
         return lib
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    with build_lock(BUILD_DIR):
+    with _library_lock(name):
         lib = _loaded.get(name)
         if lib is not None:
             return lib

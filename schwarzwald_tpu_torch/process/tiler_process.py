@@ -64,8 +64,9 @@ class TilerArguments:
     # boundary — the on-disk octree is consistent between batches because
     # nodes are re-read + merged on every visit (TilingAlgorithms.cpp:50-109).
     resume: bool = False
-    # Device selection (None/auto/cpu/cuda): with a device, MIN_DISTANCE*
-    # ranges run the Poisson kernel (ops/device.resolve_use_device).
+    # Device selection (None/auto/cpu/cuda): with a device, the grid
+    # samplers run the octree sweep and MIN_DISTANCE* ranges the Poisson
+    # kernel (ops/device.resolve_use_device).
     use_device: str | None = None
     # In-memory node cache size in bytes (--cache-size); see
     # TilerMetaParameters.cache_size_bytes. Default matches the CLI's
@@ -263,11 +264,8 @@ class TilerProcess:
             raise NotImplementedError(
                 "--multihost is not yet in the port: multihost is ROADMAP "
                 "Queue 1 item 7")
-        from ..ops.device import check_device_sampler, resolve_use_device
-        use_device = resolve_use_device(self.args.use_device)
-        if use_device:
-            check_device_sampler(self.args.sampling_strategy)
-        return use_device
+        from ..ops.device import resolve_use_device
+        return resolve_use_device(self.args.use_device)
 
     def run(self) -> PerformanceStats:
         from ..util.config import configure
@@ -484,6 +482,13 @@ class TilerProcess:
         from ..util.trace import trace_span
         with trace_span("sink_close_drain_index", "io"):
             persistence.close()
+        # device observability: grid-sampler sweeps persisted, and sweeps
+        # whose range went to the host recursion at re-rooting depths
+        self.device_stats = {
+            "device_sweeps_ok": getattr(tiler.algorithm,
+                                        "device_sweeps_ok", 0),
+            "device_reroots": getattr(tiler.algorithm, "device_reroots", 0),
+        }
         indexing_end = time.perf_counter()
 
         stats = PerformanceStats(

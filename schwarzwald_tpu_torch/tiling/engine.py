@@ -34,6 +34,7 @@ from ..core.aabb import AABB, octant_bounds
 from ..core.node import NodeStructure
 from ..core.pointbuffer import PointBuffer
 from ..ops import indexing, sampling
+from ..ops.device import GRID_SAMPLERS
 from ..ops.sampling import SamplingBehaviour, SamplingStrategy
 from .arena import PointArena
 from .meta import TilerMetaParameters, TilingStrategy
@@ -77,12 +78,12 @@ class TilingAlgorithmBase:
         self.persistence = persistence
         self.meta = meta
         self.progress = progress_reporter
-        if meta.use_device:
+        if meta.use_device and sampling_strategy.name in (
+                "MIN_DISTANCE", "MIN_DISTANCE_FAST"):
             # Poisson-disk sampling runs the device kernel for large ranges
             # (ops/device_poisson); host kernel otherwise. The grid
-            # samplers' device path (the octree sweep) is not ported yet.
-            from ..ops.device import check_device_sampler
-            check_device_sampler(sampling_strategy.name)
+            # samplers' device path is the octree sweep
+            # (_device_select_levels).
             sampling_strategy.device_backend = meta.use_device
         # LRU node cache over node contents. For LOSSLESS sinks the
         # persisted buffer equals what a re-read returns, so it is cached
@@ -103,6 +104,13 @@ class TilingAlgorithmBase:
         self._node_struct_cache: dict = {}
         self._node_struct_root = None
         self._node_struct_root_obj = None
+        # Device sweep observability: sweeps whose levels were persisted,
+        # and sweeps that left points at re-rooting depths (level 0), whose
+        # whole group then went to the host per-node recursion — the JAX
+        # package's own rule. A device fault is not counted: it fails the
+        # run.
+        self.device_sweeps_ok = 0
+        self.device_reroots = 0
 
     def _persist_node(self, points: PointBuffer, bounds: AABB,
                       name: str) -> None:
@@ -419,6 +427,55 @@ class TilingAlgorithmBase:
                 max_depth=node.max_depth)
             tasks.append(NodeTask(child, root, keys[lo:hi], ids[lo:hi]))
         return tasks
+
+    # -- device octree sweep (grid samplers) ----------------------------------
+
+    def _device_select_levels(self, arena, sorted_keys, sorted_ids,
+                              root: NodeStructure, min_node_level: int = -1):
+        """Launch one level-synchronous sweep (ops/device_tiling) over a
+        Morton-sorted fresh range on meta.use_device. Returns the int8
+        levels (node_level + 2) as a tensor on that device, without copying
+        them back (see _materialize_levels). Every fault raises: there is
+        no host fallback for a failing device."""
+        import torch
+
+        from ..ops import device_tiling
+        from ..util.trace import trace_span
+
+        name = self.sampling_strategy.name
+        device = torch.device(self.meta.use_device)
+        root_ext_x = float(root.bounds.extent()[0])
+        kwargs = {}
+        if name in ("GRID_CENTER", "JITTERED"):
+            kwargs["positions"] = torch.from_numpy(
+                arena.positions(sorted_ids)).to(device)
+            kwargs["root_min"] = [float(v) for v in root.bounds.min]
+            kwargs["root_max"] = [float(v) for v in root.bounds.max]
+        if name == "JITTERED":
+            kwargs["jit_cfgs"] = device_tiling.jittered_static_configs(
+                root_ext_x, root.max_spacing, root.max_depth)
+        cands = device_tiling.candidate_levels(root_ext_x, root.max_spacing,
+                                               root.max_depth)
+        with trace_span("device_octree_sweep", "device"):
+            key = device_tiling.keys_tensor(sorted_keys, device)
+            return device_tiling.octree_select_grid(
+                key, cands, self.meta.max_points_per_node, root.max_depth,
+                strategy=name, min_node_level=min_node_level, **kwargs)
+
+    def _materialize_levels(self, device_levels):
+        """Copy a sweep's levels to the host. None when any point was left
+        at a re-rooting depth (level 0): the JAX package's rule sends the
+        whole range to the host per-node recursion then, and the count of
+        such sweeps is device_reroots."""
+        from ..util.trace import trace_span
+
+        with trace_span("sweep_materialize", "device"):
+            levels = device_levels.cpu().numpy()
+        if (levels == 0).any():
+            self.device_reroots += 1
+            return None
+        self.device_sweeps_ok += 1
+        return levels
 
     # -- level assignment persistence ----------------------------------------
 
@@ -787,6 +844,10 @@ class TilingAlgorithmBase:
 class TilingAlgorithmAccurate(TilingAlgorithmBase):
     """TilingAlgorithmV1 (ACCURATE): global sort, recurse from the root."""
 
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._any_batch_processed = False
+
     def process_batch(self, buffer: PointBuffer, bounds: AABB) -> None:
         if not buffer.count:
             return
@@ -796,16 +857,41 @@ class TilingAlgorithmAccurate(TilingAlgorithmBase):
         # fresh arena: ids are 0..n-1, so the sorted ids ARE the sort order
         skeys, order = indexing.sort_with_keys(keys)
         root = self._make_root(bounds)
-        # Host level-synchronous sweep (native octree_sweep): the fresh
-        # first batch as one sweep from the root, later batches as a
-        # root-rooted revisit. (The JAX engine's first-batch device sweep
-        # serves only the grid samplers; the Poisson samplers take this
-        # path there too.)
+        # The device sweep persists node contents computed from this batch
+        # alone; it must never overwrite nodes persisted by an earlier
+        # (resumed / pre-populated) run — under ACCURATE the root is always
+        # written, so its existence detects any prior output.
+        if (self.meta.use_device and not self._any_batch_processed
+                and not self.persistence.node_exists("r")
+                and self._device_batch(arena, skeys, order, root)):
+            self._any_batch_processed = True
+            return
+        self._any_batch_processed = True
+        # Host level-synchronous sweep (native octree_sweep) for whatever
+        # the device sweep did not take: the fresh first batch as one sweep
+        # from the root, later batches as a root-rooted revisit.
         remaining = self._host_sweep_batch_start_nodes(
             arena, [(root, skeys, order)], root, 0)
         if not remaining:
             return
         self._do_tiling_for_node(arena, NodeTask(root, root, skeys, order))
+
+    def _device_batch(self, arena, sorted_keys, sorted_ids,
+                      root: NodeStructure) -> bool:
+        """First-batch device path of the grid samplers: the whole octree
+        assignment in one device sweep from the root — valid only for fresh
+        nodes (no cached merges). False when the sampler has no sweep (the
+        Poisson samplers) or the sweep reached re-rooting depths; the host
+        engine then tiles the batch."""
+        if self.sampling_strategy.name not in GRID_SAMPLERS:
+            return False
+        levels = self._materialize_levels(self._device_select_levels(
+            arena, sorted_keys, sorted_ids, root))
+        if levels is None:
+            return False
+        self._persist_device_assignment(arena, sorted_keys, sorted_ids,
+                                        levels, root)
+        return True
 
 
 class TilingAlgorithmFast(TilingAlgorithmBase):
@@ -845,26 +931,32 @@ class TilingAlgorithmFast(TilingAlgorithmBase):
     def _tile_split_start_nodes(self, arena, start_nodes, root,
                                 level: int) -> None:
         """The post-split tiling pipeline for one batch's start nodes:
-        with a device, fresh start nodes go straight to the per-node
-        recursion (whose sampler runs the device Poisson kernel); then the
-        host level-synchronous sweep, then the per-node recursion for
-        whatever the sweep declined."""
+        with a device, fresh start nodes go to the device octree sweep
+        (grid samplers) or straight to the per-node recursion (whose
+        sampler runs the device Poisson kernel); then the host
+        level-synchronous sweep, then the per-node recursion for whatever
+        the sweep declined."""
         if level > 0:
             self._start_nodes_used.update(
                 (morton.parse_node_name(node.name)[0], level)
                 for node, _, _ in start_nodes)
         if self.meta.use_device and level > 0:
-            # Fresh start nodes (no persisted file yet): the JAX engine
-            # offers them to its device octree sweep, which serves only the
-            # grid samplers, so for the Poisson samplers it hands every
-            # fresh start node to the per-node recursion — skipping the
-            # native host sweep, which would sample them on the host. The
-            # same hand-off here, before the revisits, keeps that routing
-            # and persist order. Revisited subtrees take the host sweep.
+            # Fresh start nodes (no persisted file yet) have no cached
+            # merges anywhere in their subtree, so their complete octree
+            # assignment runs as device sweeps from the start level. The
+            # Poisson samplers have no sweep: the JAX engine hands their
+            # fresh start nodes to the per-node recursion, skipping the
+            # native host sweep, which would sample them on the host; the
+            # same hand-off here keeps that routing and persist order.
+            # Revisited subtrees take the host sweep.
             fresh = [sn for sn in start_nodes
                      if not self.persistence.node_exists(sn[0].name)]
-            self._tile_start_nodes_parallel(
-                arena, [NodeTask(node, root, k, i) for node, k, i in fresh])
+            if self.sampling_strategy.name in GRID_SAMPLERS:
+                self._device_fresh_sweep_pipelined(arena, fresh, root, level)
+            else:
+                self._tile_start_nodes_parallel(
+                    arena, [NodeTask(node, root, k, i)
+                            for node, k, i in fresh])
             fresh_names = {node.name for node, _, _ in fresh}
             start_nodes = [sn for sn in start_nodes
                            if sn[0].name not in fresh_names]
@@ -877,6 +969,56 @@ class TilingAlgorithmFast(TilingAlgorithmBase):
         self._tile_start_nodes_parallel(
             arena, [NodeTask(node, root, k, i)
                     for node, k, i in start_nodes])
+
+    # Fresh-sweep group size: large enough to keep the card busy for a
+    # group's ~20 level passes, small enough that persisting group g-1 on
+    # the host overlaps the end of group g's sweep.
+    DEVICE_SWEEP_GROUP_POINTS = 4_000_000
+
+    def _device_fresh_sweep_pipelined(self, arena, fresh, root,
+                                      level: int) -> None:
+        """Fresh start nodes as a pipeline of device sweeps: the fresh list
+        is cut into contiguous groups of ~DEVICE_SWEEP_GROUP_POINTS points.
+        For each group: launch its sweep, persist the previous group's
+        levels on the host, then copy this group's levels back. The sweep
+        synchronises once per level, so the overlap is its last level's
+        work and the device-to-host copy. Start-node subtrees are disjoint
+        Morton prefixes at `level`, so per-group sweeps give exactly the
+        single sweep's assignment (cells never span a start-node boundary
+        at min_node_level = level - 1). A group that reached re-rooting
+        depths goes to the host per-node recursion."""
+        groups = []
+        cur, cur_pts = [], 0
+        for sn in fresh:
+            cur.append(sn)
+            cur_pts += sn[1].size
+            if cur_pts >= self.DEVICE_SWEEP_GROUP_POINTS:
+                groups.append(cur)
+                cur, cur_pts = [], 0
+        if cur:
+            groups.append(cur)
+
+        def flush(pending):
+            if pending is None:
+                return
+            levels, fk, fi, group = pending
+            if levels is None:
+                self._tile_start_nodes_parallel(
+                    arena, [NodeTask(node, root, k, i)
+                            for node, k, i in group])
+            else:
+                self._persist_device_assignment(arena, fk, fi, levels, root)
+
+        pending = None
+        for group in groups:
+            fk = np.concatenate([sn[1] for sn in group])
+            fi = np.concatenate([sn[2] for sn in group])
+            device_levels = self._device_select_levels(
+                arena, fk, fi, root, min_node_level=level - 1)
+            flush(pending)  # persist g-1 while g finishes on the card
+            pending = (self._materialize_levels(device_levels), fk, fi,
+                       group)
+        flush(pending)
 
     def _tile_start_nodes_parallel(self, arena, tasks) -> None:
         """Host multi-core fan-out over disjoint start-node subtrees

@@ -27,9 +27,10 @@ class TilerMetaParameters:
     # TilingAlgorithms.cpp:1294-1295); here it sizes the number of
     # independently processed start-node segments.
     concurrency: int = 8
-    # Device batch pipeline: None = host only; "auto"/"tpu"/"cpu" = run the
-    # first (fresh) batch's octree selection as the single-jit device sweep
-    # (ops/device_tiling) on that backend, host engine for revisits.
+    # Device path: None = host only; "cuda"/"cpu" = run the fresh octree
+    # selection of the grid samplers as the device sweep
+    # (ops/device_tiling) and the Poisson samplers' large ranges through
+    # their kernel on that torch device; host engine for revisits.
     use_device: str | None = None
     # In-memory node cache (bytes) backing the per-visit cached-point
     # re-reads. The reference parses --cache-size but never wires its

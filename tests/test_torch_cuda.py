@@ -1,6 +1,8 @@
-"""The Poisson CUDA kernel (csrc/poisson.cu) against its plain-torch version
-on the card, on small cases. Needs a CUDA card and nvcc; skipped without
-a card. Imports nothing of JAX, so on a machine without it run:
+"""The CUDA kernels (csrc/poisson.cu, csrc/morton.cu) against their
+plain-torch versions on the card, and the octree sweep and the engine's
+device paths on the card against the CPU and the host, on small cases.
+Needs a CUDA card and nvcc; skipped without a card. Imports nothing of
+JAX, so on a machine without it run:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -12,7 +14,9 @@ from schwarzwald_tpu_torch import native
 from schwarzwald_tpu_torch.core.aabb import AABB
 from schwarzwald_tpu_torch.core.pointbuffer import PointBuffer
 from schwarzwald_tpu_torch.io.memory import MemoryPersistence
-from schwarzwald_tpu_torch.ops import indexing, poisson_cuda
+from schwarzwald_tpu_torch.core import morton
+from schwarzwald_tpu_torch.ops import (device, device_tiling, indexing,
+                                       morton_cuda, poisson_cuda)
 from schwarzwald_tpu_torch.ops.sampling import SamplingStrategy
 from schwarzwald_tpu_torch.tiling import (TilerMetaParameters, TilingStrategy,
                                           make_tiling_algorithm)
@@ -120,6 +124,138 @@ def test_engine_through_the_kernel_equals_host(cuda, sampler):
     before = poisson_cuda.snapshot()["launches"]
     dev = run("cuda")
     assert poisson_cuda.snapshot()["launches"] == before + 3
+    assert set(host.node_names()) == set(dev.node_names())
+    for name in host.node_names():
+        np.testing.assert_array_equal(dev.retrieve_points(name).positions,
+                                      host.retrieve_points(name).positions,
+                                      err_msg=name)
+
+
+# -- kernel K1: the Morton interleave ------------------------------------------
+
+def grid_coords(n, seed):
+    """(n,) int32 coordinates per axis, with one-hot, 0 and 2^21 - 1 rows."""
+    rng = np.random.default_rng(seed)
+    axes = [rng.integers(0, 1 << 21, n).astype(np.int32) for _ in range(3)]
+    oh = np.array([1 << i for i in range(21)] + [0, (1 << 21) - 1],
+                  dtype=np.int32)
+    zo = np.zeros_like(oh)
+    rows = [(oh, zo, zo), (zo, oh, zo), (zo, zo, oh)]
+    return [np.concatenate([axes[a]] + [r[a] for r in rows])
+            for a in range(3)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 100_003])
+def test_morton_kernel_matches_plain_version(cuda, n):
+    # the last n rows, which hold the edge rows once n >= 69
+    axes = [a[a.size - n:] for a in grid_coords(n, n)]
+    x, y, z = (torch.from_numpy(a).to(cuda) for a in axes)
+    got = morton_cuda.interleave_cuda(x, y, z)
+    want = morton_cuda.interleave21(x, y, z)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and got.shape == (axes[0].size,)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        got.cpu().numpy().view(np.uint64),
+        morton.from_grid_coords(*(a.view(np.uint32) for a in axes)))
+
+
+def test_morton_launches_count_once(cuda):
+    x, y, z = (torch.from_numpy(a).to(cuda) for a in grid_coords(5000, 9))
+    before = morton_cuda.snapshot()["launches"]
+    for _ in range(3):
+        morton_cuda.interleave(x, y, z)
+    morton_cuda.interleave21(x, y, z)
+    assert morton_cuda.snapshot()["launches"] == before + 3
+
+
+def test_morton_wrapper_checks_its_inputs(cuda):
+    x, y, z = (torch.from_numpy(a).to(cuda) for a in grid_coords(5000, 10))
+    with pytest.raises(TypeError):
+        morton_cuda.interleave_cuda(x.to(torch.int64), y, z)
+    with pytest.raises(ValueError, match="contiguous"):
+        morton_cuda.interleave_cuda(x, torch.stack([y, y], 1)[:, 0], z)
+    with pytest.raises(ValueError, match="shape"):
+        morton_cuda.interleave_cuda(x, y[:-1], z)
+    with pytest.raises(ValueError, match="is on"):
+        morton_cuda.interleave_cuda(x, y, z.cpu())
+
+
+def test_batch_step_on_the_card_equals_host(cuda):
+    pos = np.random.default_rng(11).uniform(0.0, EXTENT, (200_000, 3))
+    got = device.encode_sort_batch(pos, np.zeros(3), np.full(3, EXTENT),
+                                   level=3, device=cuda)
+    keys, _ = indexing.index_points(pos.copy(), np.zeros(3),
+                                    np.full(3, EXTENT))
+    sk, order = indexing.sort_with_keys(keys)
+    np.testing.assert_array_equal(got.keys.cpu().numpy().view(np.uint64), sk)
+    np.testing.assert_array_equal(got.order.cpu().numpy(), order)
+    np.testing.assert_array_equal(
+        got.node_histogram.cpu().numpy(),
+        np.bincount(morton.truncate_to_level(sk, 2).astype(np.int64),
+                    minlength=512))
+
+
+# -- the octree sweep ------------------------------------------------------------
+
+@pytest.mark.parametrize("strategy", ["RANDOM_GRID", "GRID_CENTER",
+                                      "JITTERED"])
+def test_sweep_on_the_card_equals_cpu(cuda, strategy):
+    rng = np.random.default_rng(12)
+    pos = np.concatenate([rng.uniform(0.0, EXTENT, (20_000, 3)),
+                          rng.normal(20.0, 0.5, (20_000, 3))])
+    keys, pos = indexing.index_points(pos, np.zeros(3), np.full(3, EXTENT))
+    order = indexing.sort_by_key(keys)
+    skeys, spos = keys[order], pos[order]
+    spacing, max_points = 2.0, 200
+    cands = device_tiling.candidate_levels(EXTENT, spacing, 100)
+    jit_cfgs = device_tiling.jittered_static_configs(EXTENT, spacing, 100)
+
+    def run(dev):
+        kw = {}
+        if strategy != "RANDOM_GRID":
+            kw = dict(positions=torch.from_numpy(spos).to(dev),
+                      root_min=[0.0] * 3, root_max=[EXTENT] * 3,
+                      jit_cfgs=jit_cfgs)
+        return device_tiling.octree_select_grid(
+            device_tiling.keys_tensor(skeys, dev), cands, max_points, 100,
+            strategy=strategy, **kw).cpu().numpy()
+
+    want = run("cpu")
+    got = run(cuda)
+    np.testing.assert_array_equal(got, want)
+    assert np.unique(want[want > 0]).size >= 3
+
+
+@pytest.mark.parametrize("tiling", ["FAST", "ACCURATE"])
+@pytest.mark.parametrize("sampler", ["RANDOM_GRID", "GRID_CENTER",
+                                     "JITTERED"])
+def test_engine_grid_sweep_through_the_card_equals_host(cuda, tiling,
+                                                        sampler):
+    rng = np.random.default_rng(13)
+    batches = [rng.uniform(0.0, EXTENT / 2, (5000, 3)),
+               rng.uniform(0.0, EXTENT, (5000, 3))]
+    bounds = AABB([0.0] * 3, [EXTENT] * 3)
+
+    def run(use_device):
+        persistence = MemoryPersistence()
+        meta = TilerMetaParameters(
+            spacing_at_root=2.0 if sampler == "JITTERED" else 6.0,
+            max_points_per_node=300, concurrency=4, use_device=use_device)
+        algo = make_tiling_algorithm(TilingStrategy(tiling),
+                                     SamplingStrategy(sampler, 300),
+                                     persistence, meta)
+        if tiling == "FAST":
+            algo.level_of_start_nodes = 3
+        for pos in batches:
+            algo.process_batch(PointBuffer(pos.copy()), bounds)
+        algo.finalize(bounds)
+        return algo, persistence
+
+    _, host = run(None)
+    algo, dev = run("cuda")
+    assert algo.device_sweeps_ok == (2 if tiling == "FAST" else 1)
+    assert algo.device_reroots == 0
     assert set(host.node_names()) == set(dev.node_names())
     for name in host.node_names():
         np.testing.assert_array_equal(dev.retrieve_points(name).positions,

@@ -171,9 +171,6 @@ def test_port_auto_resolves_to_host_without_a_card():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--use-device", "cpu", "--sampling", "RANDOM_GRID"], "item 4"),
-    (["--use-device", "cpu", "--sampling", "GRID_CENTER"], "item 4"),
-    (["--use-device", "cpu", "--sampling", "JITTERED"], "item 4"),
     (["--multichip", "2"], "item 6"),
     (["--multihost", "0", "2"], "item 7"),
 ])
