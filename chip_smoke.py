@@ -10,18 +10,27 @@ each phase prints its seconds:
   1. environment: torch, the card, its power limit; build every kernel of
      the port from the checkout's sources, all at once (csrc/poisson.cu and
      csrc/morton.cu with nvcc, the native host kernels with g++);
-  2. each kernel against its plain-torch version on the card: K2 (Poisson)
-     on Morton-sorted ranges (uniform up to 1.5M points, clustered,
-     duplicates, a ::3 analyze mask) in both precision modes, its f64 masks
-     also against the native host kernel; K1 (Morton interleave) on 10M and
-     10,000,001 random coordinates with one-hot edge rows, also against the
-     host encode, timed with CUDA events. Results must be equal exactly;
+  2. each kernel against its plain-torch version on the card: K2 (Poisson,
+     phase A's close lists and phase B's decisions) on Morton-sorted ranges
+     (uniform up to 1.5M points, clustered, duplicates, a ::3 analyze mask,
+     a dense range at the pair gate's edge that runs window by window) in
+     both precision modes, and the main path's root-shaped range of
+     5,490,148 points in f64 (the plain version skipped there for time);
+     the pair CSR built on the card against the host's; every f64 mask
+     also against the native host kernel; per case the kernel's time with
+     phase A and phase B apart, its bounds (bytes and the distance tests)
+     and its share of each, and the peak scratch. K1 (Morton interleave) on
+     10M and 10,000,001 random coordinates with one-hot edge rows, also
+     against the host encode, timed with CUDA events. Results must be equal
+     exactly;
   3. the MIN_DISTANCE main path (kernel K2): a 10M-point uniform LAS tiled
      at the defaults (FAST, MIN_DISTANCE, 3D Tiles, 20,000 points per node,
-     spacing = diagonal/250) with use_device="cuda" and on the host; the
-     trees must be byte-identical (properties.json up to its two timing
-     fields), every tile must hold finite positions, the tiles must hold at
-     least every input point, and K2 must have been launched;
+     spacing = diagonal/250) with use_device="cuda" and "host"; the trees
+     must be byte-identical (properties.json up to its two timing fields),
+     every tile must hold finite positions, the tiles must hold at least
+     every input point, and K2 must have been launched. Each device range's
+     stream time is split into upload, prep (AABBs and pair CSR), phase A +
+     B and download, and the ranges must have run on more than one stream;
   4. the batch step (kernel K1): 10M uniform float64 positions through
      encode_sort_batch on the card and the host grid coordinates through
      encode_sort_grid, against the host encode + sort + histogram; the
@@ -44,13 +53,15 @@ import os
 import shutil
 import subprocess
 import sys
-import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MAIN_PATH_POINTS = 10_000_000   # the reference's default batch
 GRID_SMALL_POINTS = 1_000_000   # GRID_CENTER and JITTERED runs
 TIMING_CASE = "uniform_262144"  # the K2 row's ms / plain_ms
+ROOT_POINTS = 5_490_148         # the 10M main path's root range
+ROOT_CASE = f"root_{ROOT_POINTS}"
+DENSE_POINTS = 92_160           # 180 blocks at the pair gate's edge
 K1_SIZES = (10_000_000, 10_000_001)
 
 
@@ -137,7 +148,7 @@ def phase_build() -> None:
             f.result()
     print(f"build: native host kernels {seconds:.1f} s", flush=True)
     for precision in ("f64", "f32"):
-        poisson_cuda._kernel_fn(precision)
+        poisson_cuda._kernel_fns(precision)
     morton_cuda._kernel_fn()
     for name in ("poisson", "morton"):
         info = _cuda_build.build_info[name]
@@ -151,33 +162,93 @@ def phase_build() -> None:
 # -- phase 2: kernels against their plain versions ---------------------------------
 
 def poisson_cases():
-    """(name, sorted positions, spacing, analyze mask, extent)."""
+    """(name, sorted positions, spacing, analyze mask, extent, precision
+    modes). The root-shaped range is the 10M main path's largest (the
+    root's 5,490,148 points at the root spacing, 1000 * sqrt(3) / 250); the
+    dense range sits at the pair gate's edge (87.5 pairs per block, 1.8e9
+    close pairs), so the kernels run window by window."""
     import numpy as np
 
     rng = np.random.default_rng(20260816)
     ext = 64.0
+    both = ("f64", "f32")
     cases = []
     for n in (4096, 262_144, 1_500_000):
         pos = sorted_range(rng.uniform(0.0, ext, (n, 3)), ext)
-        cases.append((f"uniform_{n}", pos, 2.0, None, ext))
+        cases.append((f"uniform_{n}", pos, 2.0, None, ext, both))
     centers = rng.uniform(4.0, ext - 4.0, (64, 3))
     pos = np.concatenate([c + rng.normal(0.0, 0.8, (3000, 3))
                           for c in centers])
     cases.append(("clustered_192000",
                   sorted_range(np.clip(pos, 0.0, ext - 1e-9), ext), 0.6,
-                  None, ext))
+                  None, ext, both))
     pos = sorted_range(rng.uniform(0.0, ext, (262_144, 3)), ext)
     pos[5000:6000] = pos[4999]  # a run of exact duplicates
-    cases.append(("duplicates_262144", pos, 1.0, None, ext))
+    cases.append(("duplicates_262144", pos, 1.0, None, ext, both))
     pos = sorted_range(rng.uniform(0.0, ext, (262_144, 3)), ext)
     analyze = np.zeros(pos.shape[0], dtype=bool)
     analyze[::3] = True
-    cases.append(("analyze3_262144", pos, 2.0, analyze, ext))
+    cases.append(("analyze3_262144", pos, 2.0, analyze, ext, both))
+    pos = sorted_range(rng.uniform(0.0, 10.0, (DENSE_POINTS, 3)), 10.0)
+    cases.append((f"dense_{DENSE_POINTS}", pos, 6.0, None, 10.0, both))
+    pos = sorted_range(rng.uniform(0.0, 1000.0, (ROOT_POINTS, 3)), 1000.0)
+    cases.append((ROOT_CASE, pos, 1000.0 * 3 ** 0.5 / 250, None, 1000.0,
+                  ("f64",)))
     return cases
 
 
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): memory,
+# and f64 / f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
+
+
+def poisson_bounds(p) -> dict:
+    """The least time of one K2 call on these inputs: the bytes (three
+    coordinates and the analyze byte in, one mask byte out, per point) over
+    the memory rate, and the distance tests of the AABB-pair formulation
+    (every point pair of a listed block pair, j < i within a block; 8
+    operations each) over the peak rate of the mode."""
+    n, elt = p.n, p.planes.itemsize
+    n_bytes = n * (3 * elt + 1 + (p.analyze is not None))
+    sizes = [min(p.block, n - b * p.block) for b in range(p.n_blocks)]
+    tests = (p.pair_bj.size * p.block * p.block
+             + sum(s * (s - 1) // 2 for s in sizes))
+    precision = "f64" if elt == 8 else "f32"
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 8 * tests / PEAK_FLOPS[precision] * 1e3
+    return {"bytes": n_bytes, "tests": tests, "byte_ms": byte_ms,
+            "op_ms": op_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms > op_ms else "operations"}
+
+
+def kernel_runs(fn, reps: int = 3):
+    """fn(stats) `reps` times after a warm-up, each synchronised: (last
+    result, median ms, phase A and B ms and stats of the median run, peak
+    scratch bytes of the warm-up)."""
+    import torch
+
+    from schwarzwald_tpu_torch.ops import poisson_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    synced(lambda: fn({}))
+    scratch = torch.cuda.max_memory_allocated() - base
+    runs = []
+    for _ in range(reps):
+        stats = {}
+        out, ms = synced(lambda: fn(stats))
+        runs.append((ms, poisson_cuda.phase_ms(stats), stats))
+    ms, phases, stats = sorted(runs, key=lambda r: r[0])[reps // 2]
+    return out, ms, phases, stats, scratch
+
+
 def phase_poisson_kernel(report: dict) -> None:
-    """K2 vs its plain version (and vs native in f64) on the card."""
+    """K2 vs its plain version (and vs native in f64) on the card, with
+    the pair CSR built on the card against the host's, and phase A and
+    phase B each against its plain version on the ranges of up to 262,144
+    points."""
     import numpy as np
     import torch
 
@@ -187,43 +258,98 @@ def phase_poisson_kernel(report: dict) -> None:
     host_kernel = native.poisson_sample_kernel()
     dev = torch.device("cuda")
     max_err = 0
-    for name, pos, spacing, analyze, ext in poisson_cases():
+    for name, pos, spacing, analyze, ext, modes in poisson_cases():
+        t0 = time.perf_counter()
         native_mask = host_kernel(pos, np.zeros(3), np.full(3, ext), spacing,
                                   analyze)
-        for precision in ("f64", "f32"):
+        native_s = time.perf_counter() - t0
+        for precision in modes:
             p = poisson_cuda.prep(pos, spacing, analyze, precision)
             if p is None:
                 raise RuntimeError(f"{name}: prep declined the range")
             planes = torch.from_numpy(p.planes).to(dev)
             ana = (None if p.analyze is None
                    else torch.from_numpy(p.analyze).to(dev))
-            ptr = torch.from_numpy(p.pair_ptr).to(dev)
-            bj = torch.from_numpy(p.pair_bj).to(dev)
-            got, k_ms = median_ms(lambda: poisson_cuda.accept_mask_cuda(
-                planes, ana, p.sq, ptr, bj))
-            want, plain_ms = synced(lambda: poisson_cuda.accept_mask_torch(
-                planes, ana, p.sq, ptr, bj))
+            ptr, bj = poisson_cuda.pair_csr_torch(
+                planes, poisson_cuda.inflation(spacing),
+                poisson_cuda.MAX_PAIRS_PER_BLOCK * p.n_blocks)
+            if not (np.array_equal(ptr.cpu().numpy(), p.pair_ptr)
+                    and np.array_equal(bj.cpu().numpy(), p.pair_bj)):
+                raise RuntimeError(f"{name} {precision}: the pair CSR built "
+                                   f"on the card differs from the host's")
+            got, k_ms, phases, stats, scratch = kernel_runs(
+                lambda st: poisson_cuda.accept_mask_cuda(
+                    planes, ana, p.sq, ptr, bj, stats=st))
             got = got.cpu().numpy()
-            want = want.cpu().numpy()
-            err = int(np.abs(got.astype(np.int16) - want).max())
-            max_err = max(max_err, err)
-            print(f"kernel poisson {name} {precision}: n={pos.shape[0]} "
+            b = poisson_bounds(p)
+            plain = "plain skipped (time)"
+            if name != ROOT_CASE:
+                want, plain_ms = synced(lambda: poisson_cuda.accept_mask_torch(
+                    planes, ana, p.sq, ptr, bj))
+                want = want.cpu().numpy()
+                err = int(np.abs(got.astype(np.int16) - want).max())
+                max_err = max(max_err, err)
+                if err:
+                    raise RuntimeError(
+                        f"{name} {precision}: kernel mask differs from the "
+                        f"plain version at {int((got != want).sum())} points")
+                plain = f"plain_ms={plain_ms:.3f}"
+            print(f"kernel poisson {name} {precision}: n={p.n} "
                   f"blocks={p.n_blocks} pairs/block="
                   f"{p.pair_bj.size / p.n_blocks:.2f} "
-                  f"accepted={int(got.sum())} kernel_ms={k_ms:.3f} "
-                  f"plain_ms={plain_ms:.3f}", flush=True)
-            if err:
-                raise RuntimeError(f"{name} {precision}: kernel mask differs "
-                                   f"from the plain version at "
-                                   f"{int((got != want).sum())} points")
+                  f"close_pairs={stats['close_entries']} "
+                  f"windows={stats['windows']} accepted={int(got.sum())} "
+                  f"kernel_ms={k_ms:.3f} (phase A {phases['A']:.3f}, "
+                  f"phase B {phases['B']:.3f}) {plain}; bound "
+                  f"{b['bound_ms']:.4f} ms by {b['bound_by']} (byte floor "
+                  f"{b['byte_ms']:.4f} ms, the kernel at "
+                  f"{100 * b['byte_ms'] / k_ms:.3f}% of it; {b['tests']:.4g} "
+                  f"distance tests {b['op_ms']:.4f} ms, the kernel at "
+                  f"{100 * b['op_ms'] / k_ms:.2f}%); peak scratch "
+                  f"{scratch / 2 ** 20:.1f} MiB; native host "
+                  f"{native_s * 1e3:.1f} ms", flush=True)
             if precision == "f64" and not np.array_equal(got.view(bool),
                                                          native_mask):
                 raise RuntimeError(f"{name} f64: kernel mask differs from "
                                    f"the native host kernel")
+            if name.startswith("dense") and stats["windows"] < 2:
+                raise RuntimeError(f"{name}: the kernels ran in one window")
+            if p.n <= 262_144 and not name.startswith("dense"):
+                check_phases(name, precision, planes, ana, p, ptr, bj)
+            if precision == "f64" and name in (TIMING_CASE, ROOT_CASE):
+                lists = poisson_cuda.close_lists_cuda(planes, ana, p.sq, ptr,
+                                                      bj)
+                deps = poisson_cuda.block_deps(lists[0], lists[1], p.n)
+                print(f"kernel poisson {name} f64: phase B waits on "
+                      f"{sum(map(len, deps)) / p.n_blocks:.2f} blocks per "
+                      f"block; longest dependency chain "
+                      f"{poisson_cuda.longest_chain(deps)} of "
+                      f"{p.n_blocks} blocks", flush=True)
             if name == TIMING_CASE and precision == "f64":
-                report["ms"] = k_ms
-                report["plain_ms"] = plain_ms
+                report.update(ms=k_ms, plain_ms=plain_ms,
+                              bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                              phase_a_ms=phases["A"], phase_b_ms=phases["B"],
+                              scratch_mib=scratch / 2 ** 20)
+            del planes, ana, ptr, bj
     report["max_abs_err"] = max_err
+
+
+def check_phases(name, precision, planes, ana, p, ptr, bj) -> None:
+    """Phase A's lists and phase B's mask on the card against their plain
+    versions, exactly (the same lists in the same order)."""
+    import torch
+
+    from schwarzwald_tpu_torch.ops import poisson_cuda
+
+    got = poisson_cuda.close_lists_cuda(planes, ana, p.sq, ptr, bj)
+    want = poisson_cuda.close_lists_torch(planes, ana, p.sq, ptr, bj)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError(f"{name} {precision}: phase A's close lists "
+                           f"differ from their plain version")
+    if not torch.equal(poisson_cuda.decide_cuda(p.n, *want),
+                       poisson_cuda.decide_torch(p.n, *want)):
+        raise RuntimeError(f"{name} {precision}: phase B's mask differs "
+                           f"from its plain version")
 
 
 def edge_coords(n: int, seed: int):
@@ -269,8 +395,9 @@ def phase_morton_kernel(report: dict) -> None:
         if not host_equal:
             raise RuntimeError(f"n={n}: K1 differs from the host encode")
         if n == K1_SIZES[0]:
-            report["ms"] = k_ms
-            report["plain_ms"] = plain_ms
+            report.update(ms=k_ms, plain_ms=plain_ms,
+                          bound_ms=20 * n / HBM_BYTES_PER_S * 1e3,
+                          bound_by="bytes")
     report["max_abs_err"] = max_err
 
 
@@ -345,51 +472,55 @@ def phase_min_distance(work: str, report: dict, card: str) -> None:
     write_uniform_las(src, MAIN_PATH_POINTS)
     print(f"main path: wrote {MAIN_PATH_POINTS} uniform points in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # where the device run's time goes: wall time inside the device Poisson
-    # path (prep upload, kernel, mask download) per range; ranges run from
-    # several threads at once, so the sum can exceed the run's wall time
-    ranges = []
-    lock = threading.Lock()
-    accept_mask = poisson_cuda.accept_mask
-
-    def timed_accept_mask(p, device):
-        t = time.perf_counter()
-        out = accept_mask(p, device)
-        with lock:
-            ranges.append((p.n, time.perf_counter() - t))
-        return out
-
     rates = {}
     for mode in ("cuda", "host"):
         out = os.path.join(work, f"out_{mode}")
-        ranges.clear()
-        poisson_cuda.accept_mask = timed_accept_mask
+        # where the device run's time goes: each device range's stream
+        # time in four parts (CUDA events on the range's own stream)
+        poisson_cuda.trace = []
         poisson_cuda.reset_counters()
         t0 = time.perf_counter()
         try:
-            sz.tile([src], out, use_device=None if mode == "host" else mode)
+            sz.tile([src], out, use_device=mode)
         finally:
             seconds = time.perf_counter() - t0
             counts = poisson_cuda.snapshot()
-            poisson_cuda.accept_mask = accept_mask
+            ranges, poisson_cuda.trace = poisson_cuda.trace, None
         rates[mode] = MAIN_PATH_POINTS / seconds
         print(f"main path {mode}: {seconds:.2f} s, "
               f"{rates[mode]:.0f} points/s on {card}; counters {counts}",
               flush=True)
-        if ranges:
-            sizes = sorted(n for n, _ in ranges)
-            print(f"main path {mode}: {len(ranges)} device ranges, "
-                  f"{sum(sizes)} points, sizes min/median/max "
-                  f"{sizes[0]}/{sizes[len(sizes) // 2]}/{sizes[-1]}, "
-                  f"{sum(s for _, s in ranges):.2f} s summed inside the "
-                  f"device Poisson path (largest range "
-                  f"{max(ranges)[1]:.2f} s)", flush=True)
-        if mode == "cuda":
-            report["launches"] = counts["launches"]
-            if counts["launches"] <= 0:
-                raise RuntimeError("the main path launched no Poisson kernel")
-        elif counts["launches"]:
-            raise RuntimeError("the host run launched the kernel")
+        if mode == "host":
+            if counts["launches"] or ranges:
+                raise RuntimeError("the host run launched the kernels")
+            continue
+        report["launches"] = counts["launches"]
+        if counts["launches"] <= 0 or not ranges:
+            raise RuntimeError("the main path launched no Poisson kernel")
+        sizes = sorted(r["n"] for r in ranges)
+        largest = max(ranges, key=lambda r: r["n"])
+        streams = {r["stream"] for r in ranges}
+        parts = {k: sum(r[k] for r in ranges)
+                 for k in ("upload_ms", "prep_ms", "kernel_ms", "A", "B",
+                           "download_ms", "wall_ms")}
+        print(f"main path cuda: {len(ranges)} device ranges, {sum(sizes)} "
+              f"points, sizes min/median/max {sizes[0]}/"
+              f"{sizes[len(sizes) // 2]}/{sizes[-1]}, on {len(streams)} "
+              f"streams; summed over the ranges (ms): upload "
+              f"{parts['upload_ms']:.1f}, prep (AABBs and pair CSR) "
+              f"{parts['prep_ms']:.1f}, phase A + B "
+              f"{parts['kernel_ms']:.1f} (A {parts['A']:.1f}, B "
+              f"{parts['B']:.1f}), download {parts['download_ms']:.1f}; "
+              f"host wall inside the path {parts['wall_ms']:.1f}",
+              flush=True)
+        print(f"main path cuda: the root range ({largest['n']} points): "
+              + ", ".join(f"{k} {largest[k]:.2f}" for k in
+                          ("upload_ms", "prep_ms", "kernel_ms", "A", "B",
+                           "download_ms", "wall_ms"))
+              + f", {largest['windows']} windows", flush=True)
+        if len(streams) < 2 and len(ranges) > 1 and (os.cpu_count() or 1) > 1:
+            raise RuntimeError("every device range ran on one stream while "
+                               "the engine had more than one worker")
     n_files = compare_trees(os.path.join(work, "out_cuda"),
                             os.path.join(work, "out_host"))
     # ancestors rebuilt at finalize repeat points of their children, so
@@ -538,8 +669,7 @@ def phase_grid_samplers(work: str, card: str) -> None:
                 observed_pipelined
             proc = TilerProcess(TilerArguments(
                 sources=[src], output_directory=out, diagonal_fraction=250,
-                sampling_strategy=sampler,
-                use_device="cuda" if mode == "cuda" else None))
+                sampling_strategy=sampler, use_device=mode))
             t0 = time.perf_counter()
             try:
                 proc.run()
@@ -623,14 +753,15 @@ def main() -> int:
           f"device {card} x{torch.cuda.device_count()}", flush=True)
     print(smi, flush=True)  # the card's name and power limit
 
+    # no single PyTorch call computes either function: library_ms is null
     k2 = {"name": "poisson_accept_mask", "route": "cuda",
           "source": "schwarzwald_tpu_torch/csrc/poisson.cu",
           "replaces": "schwarzwald_tpu/ops/poisson_pallas.py:135",
-          "at": f"{TIMING_CASE} f64"}
+          "library_ms": None, "at": f"{TIMING_CASE} f64"}
     k1 = {"name": "morton_interleave", "route": "cuda",
           "source": "schwarzwald_tpu_torch/csrc/morton.cu",
           "replaces": "schwarzwald_tpu/ops/device.py:217",
-          "at": f"n={K1_SIZES[0]}"}
+          "library_ms": None, "at": f"n={K1_SIZES[0]}"}
     timed_phase("1 build", phase_build)
     timed_phase("2 K2 vs plain", phase_poisson_kernel, k2)
     timed_phase("2 K1 vs plain", phase_morton_kernel, k1)
@@ -646,9 +777,12 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
-                                  "launches", "max_abs_err", "ms",
-                                  "plain_ms", "at")} for r in (k1, k2)]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "at")
+    kernels = [{k: r[k] for k in keys} for r in (k1, k2)]
+    kernels[1].update({k: k2[k] for k in ("phase_a_ms", "phase_b_ms",
+                                          "scratch_mib")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -3,11 +3,12 @@
 The PyTorch + CUDA port of `schwarzwald_tpu` for NVIDIA Hopper (H100). The
 host modules (I/O, Morton indexing, the tiling engine, the native C++
 kernels) are the JAX package's own, copied so this package never imports
-JAX. `--use-device cuda` selects the device paths: the MIN_DISTANCE
-Poisson-disk accept mask of every large node range is a hand-written CUDA
-kernel (csrc/poisson.cu, ops/poisson_cuda.py), and the grid samplers'
-fresh octree assignment is a level-synchronous sweep in torch ops
-(ops/device_tiling.py). The batch step (ops/device.py, entry.py) runs the
+JAX. `--use-device cuda`, the default, selects the device paths: the
+MIN_DISTANCE Poisson-disk accept mask of every large node range runs on
+hand-written CUDA kernels (csrc/poisson.cu, ops/poisson_cuda.py), and the
+grid samplers' fresh octree assignment is a level-synchronous sweep in
+torch ops (ops/device_tiling.py). `--use-device host` is the native host
+run, `--use-device cpu` the kernels' plain-torch versions. The batch step (ops/device.py, entry.py) runs the
 Morton interleave as a hand-written CUDA kernel (csrc/morton.cu,
 ops/morton_cuda.py). Output is byte-identical to the host run.
 
@@ -60,10 +61,12 @@ def tile(sources, output_directory, **options):
     Equivalent to the CLI --tiler mode; `options` accepts the
     TilerArguments fields (spacing, diagonal_fraction, sampling_strategy,
     tiling_strategy, output_format, max_points_per_node, use_device, ...).
-    Returns the PerformanceStats of the run.
+    `use_device` is "cuda" unless given ("cpu" or "host" otherwise), and
+    raises without a card. Returns the PerformanceStats of the run.
 
         import schwarzwald_tpu_torch as sz
-        sz.tile(["cloud.las"], "out/", use_device="cuda")
+        sz.tile(["cloud.las"], "out/")                     # on the card
+        sz.tile(["cloud.las"], "out/", use_device="host")  # host only
     """
     from .core.attributes import OutputFormat
     from .process.tiler_process import TilerArguments, TilerProcess

@@ -107,13 +107,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "completed batch (tiler_state.json checkpoint)")
     p.add_argument("--delete-source", action="store_true",
                    help="(converter) delete source files once converted")
-    p.add_argument("--use-device", default=None,
-                   choices=["auto", "cpu", "cuda"],
-                   help="Device selection: cuda runs the grid samplers' "
-                        "octree sweep and the MIN_DISTANCE Poisson kernel "
-                        "on the CUDA card, cpu their plain PyTorch "
-                        "versions, auto cuda when a card is visible (host "
-                        "otherwise)")
+    p.add_argument("--use-device", default="cuda",
+                   choices=["cuda", "cpu", "host"],
+                   help="Device selection: cuda (the default; raises "
+                        "without a card) runs the grid samplers' octree "
+                        "sweep and the MIN_DISTANCE Poisson kernels on the "
+                        "CUDA card, cpu their plain PyTorch versions, host "
+                        "the native host kernels only")
     p.add_argument("--multichip", type=int, default=0,
                    help="Shard every batch's sort + octree split across an "
                         "N-device mesh (lossless all_to_all point exchange; "

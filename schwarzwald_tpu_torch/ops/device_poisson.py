@@ -1,12 +1,14 @@
 """MIN_DISTANCE (Poisson-disk) sampling on the device.
 
 The counterpart of schwarzwald_tpu/ops/device_poisson.py with the same
-signature. `backend="cuda"` runs the hand-written CUDA kernel
-(ops/poisson_cuda, csrc/poisson.cu); `backend="cpu"` runs its plain-torch
-version on the CPU. Both run the f64 mode, which is bit-equal to the native
-host kernel, so `--use-device` output is byte-identical to a host run.
-(The JAX package's XLA relaxation `_relax`, kept there for f64 parity on
-the cpu backend, has no counterpart: the plain version serves.)
+signature. `backend="cuda"` runs the hand-written CUDA kernels on the
+calling thread's stream, with the prep on the card
+(ops/poisson_cuda.range_mask_cuda, csrc/poisson.cu); `backend="cpu"` runs
+the host prep and the block-sequential plain-torch version on the CPU. Both
+run the f64 mode, which is bit-equal to the native host kernel, so
+`--use-device` output is byte-identical to a host run. (The JAX package's
+XLA relaxation `_relax`, kept there for f64 parity on the cpu backend, has
+no counterpart: the plain version serves.)
 """
 from __future__ import annotations
 
@@ -34,9 +36,13 @@ def poisson_accept_mask_device(sorted_keys: np.ndarray,
     if backend not in ("cuda", "cpu"):
         raise ValueError(f"Poisson device backend must be cuda or cpu, "
                          f"got {backend!r}")
-    prep = poisson_cuda.prep(positions, spacing, analyze_mask, "f64")
-    if prep is None:
-        if spacing > 0:
-            poisson_cuda.count("pair_gate")
+    if spacing <= 0:
         return None
-    return poisson_cuda.accept_mask(prep, backend)
+    if backend == "cuda":
+        mask = poisson_cuda.range_mask_cuda(positions, spacing, analyze_mask,
+                                            "f64")
+        poisson_cuda.count("pair_gate" if mask is None else "kernel")
+        return mask
+    prep = poisson_cuda.prep(positions, spacing, analyze_mask, "f64")
+    poisson_cuda.count("pair_gate" if prep is None else "plain")
+    return None if prep is None else poisson_cuda.accept_mask(prep, "cpu")

@@ -64,10 +64,10 @@ class TilerArguments:
     # boundary — the on-disk octree is consistent between batches because
     # nodes are re-read + merged on every visit (TilingAlgorithms.cpp:50-109).
     resume: bool = False
-    # Device selection (None/auto/cpu/cuda): with a device, the grid
-    # samplers run the octree sweep and MIN_DISTANCE* ranges the Poisson
-    # kernel (ops/device.resolve_use_device).
-    use_device: str | None = None
+    # Device selection (cuda/cpu/host): with a device, the grid samplers
+    # run the octree sweep and MIN_DISTANCE* ranges the Poisson kernels;
+    # host is the native host run (ops/device.resolve_use_device).
+    use_device: str = "cuda"
     # In-memory node cache size in bytes (--cache-size); see
     # TilerMetaParameters.cache_size_bytes. Default matches the CLI's
     # 512 MiB — out-of-core revisits re-read every touched node per batch

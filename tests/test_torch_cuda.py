@@ -76,13 +76,92 @@ def test_kernel_matches_plain_version(cuda, precision, case):
 
 
 def test_each_launch_counts_once(cuda):
+    """One window: phase A's counting and filling kernels and phase B's
+    deciding kernel, three launches per call."""
     p = poisson_cuda.prep(sorted_uniform(4096, 6), 2.0)
     planes, ana, ptr, bj = on_card(p, cuda)
     before = poisson_cuda.snapshot()["launches"]
     for _ in range(3):
         poisson_cuda.accept_mask_cuda(planes, ana, p.sq, ptr, bj)
     poisson_cuda.accept_mask_torch(planes, ana, p.sq, ptr, bj)
-    assert poisson_cuda.snapshot()["launches"] == before + 3
+    assert poisson_cuda.snapshot()["launches"] == before + 3 * 3
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+@pytest.mark.parametrize("case", sorted(cases()))
+def test_phase_kernels_match_their_plain_versions(cuda, precision, case):
+    pos, spacing, analyze = cases()[case]
+    p = poisson_cuda.prep(pos, spacing, analyze, precision)
+    planes, ana, ptr, bj = on_card(p, cuda)
+    got = poisson_cuda.close_lists_cuda(planes, ana, p.sq, ptr, bj)
+    want = poisson_cuda.close_lists_torch(planes, ana, p.sq, ptr, bj)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    mask = poisson_cuda.decide_cuda(p.n, *want)
+    assert torch.equal(mask, poisson_cuda.decide_torch(p.n, *want))
+    assert torch.equal(mask, poisson_cuda.accept_mask_torch(
+        planes, ana, p.sq, ptr, bj))
+
+
+@pytest.mark.parametrize("budget", [1, 5000])
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_kernel_windows_match_plain_version(cuda, precision, budget):
+    pos = sorted_uniform(20_000, 14)
+    p = poisson_cuda.prep(pos, 2.5, None, precision)
+    planes, ana, ptr, bj = on_card(p, cuda)
+    stats = {}
+    got = poisson_cuda.accept_mask_cuda(planes, ana, p.sq, ptr, bj,
+                                        budget=budget, stats=stats)
+    torch.cuda.synchronize()
+    assert stats["windows"] > 1
+    assert set(poisson_cuda.phase_ms(stats)) == {"A", "B"}
+    assert torch.equal(got, poisson_cuda.accept_mask_two_phase_torch(
+        planes, ana, p.sq, ptr, bj, budget=budget))
+    assert torch.equal(got, poisson_cuda.accept_mask_torch(
+        planes, ana, p.sq, ptr, bj))
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_pair_csr_on_the_card_equals_numpy(cuda, precision):
+    pos = sorted_uniform(50_000, 15)
+    p = poisson_cuda.prep(pos, 1.5, None, precision)
+    planes = torch.from_numpy(p.planes).to(cuda)
+    ptr, bj = poisson_cuda.pair_csr_torch(
+        planes, poisson_cuda.inflation(1.5),
+        poisson_cuda.MAX_PAIRS_PER_BLOCK * p.n_blocks)
+    np.testing.assert_array_equal(ptr.cpu().numpy(), p.pair_ptr)
+    np.testing.assert_array_equal(bj.cpu().numpy(), p.pair_bj)
+
+
+def test_ranges_from_threads_at_once_equal_a_serial_run(cuda):
+    """8 threads send ranges at once, each on its own stream: the masks
+    are those of a serial run and of the native host kernel."""
+    import concurrent.futures as cf
+
+    ranges = [(sorted_uniform(30_000 + 1000 * k, 20 + k), 1.0 + 0.25 * k,
+               None if k % 3 else np.arange(30_000 + 1000 * k) % 4 == 0)
+              for k in range(8)]
+
+    def run(args):
+        return (poisson_cuda.range_mask_cuda(*args),
+                poisson_cuda.thread_stream(cuda).cuda_stream)
+
+    serial = [run(r)[0] for r in ranges]
+    poisson_cuda.trace = []
+    try:
+        with cf.ThreadPoolExecutor(8) as pool:
+            results = list(pool.map(run, ranges))
+        records = poisson_cuda.trace
+    finally:
+        poisson_cuda.trace = None
+    assert len({s for _, s in results}) > 1
+    assert len(records) == 8 and len({r["stream"] for r in records}) > 1
+    for (pos, spacing, analyze), want, (got, _) in zip(ranges, serial,
+                                                       results):
+        np.testing.assert_array_equal(got, want)
+        host = native.poisson_sample_kernel()(
+            pos, np.zeros(3), np.full(3, EXTENT), spacing, analyze)
+        np.testing.assert_array_equal(got, host)
 
 
 def test_wrapper_checks_its_inputs(cuda):
@@ -121,9 +200,12 @@ def test_engine_through_the_kernel_equals_host(cuda, sampler):
         return persistence
 
     host = run(None)
-    before = poisson_cuda.snapshot()["launches"]
+    before = poisson_cuda.snapshot()
     dev = run("cuda")
-    assert poisson_cuda.snapshot()["launches"] == before + 3
+    after = poisson_cuda.snapshot()
+    # three ranges, each one window: three launches per range
+    assert after["kernel"] == before["kernel"] + 3
+    assert after["launches"] == before["launches"] + 3 * 3
     assert set(host.node_names()) == set(dev.node_names())
     for name in host.node_names():
         np.testing.assert_array_equal(dev.retrieve_points(name).positions,

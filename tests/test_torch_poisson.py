@@ -1,7 +1,8 @@
-"""The port's Poisson-disk accept mask (ops/poisson_cuda plain-torch version)
-against the JAX package: the Pallas kernel in interpret mode and the f32
-greedy oracle (f32 mode), the XLA relaxation on the cpu backend and the
-native host kernel (f64 mode). Every comparison is exact: a mask is a
+"""The port's Poisson-disk accept mask (ops/poisson_cuda plain-torch
+versions: the block-sequential one and the kernels' two-phase path, windows
+included) against the JAX package: the Pallas kernel in interpret mode and
+the f32 greedy oracle (f32 mode), the XLA relaxation on the cpu backend and
+the native host kernel (f64 mode). Every comparison is exact: a mask is a
 sequence of comparisons, with no reduction whose order could differ."""
 import numpy as np
 import pytest
@@ -21,11 +22,26 @@ torch.set_num_threads(1)
 BOUNDS = AABB([0.0, 0.0, 0.0], [64.0, 64.0, 64.0])
 
 
+def two_phase_masks(p):
+    """The two-phase plain path of a prepped range, in one window and with
+    a budget so small that every block is a window of its own."""
+    t = [None if a is None else torch.from_numpy(a)
+         for a in (p.planes, p.analyze, p.pair_ptr, p.pair_bj)]
+    return [poisson_cuda.accept_mask_two_phase_torch(
+                t[0], t[1], p.sq, t[2], t[3], p.block, budget).numpy()
+            .view(bool) for budget in (poisson_cuda.CLOSE_BUDGET, 1)]
+
+
 def port_mask(pos, spacing, analyze=None, precision="f64",
               block=poisson_cuda.BLOCK):
+    """The block-sequential plain mask, after checking that the two-phase
+    plain path gives the same."""
     p = poisson_cuda.prep(pos, spacing, analyze, precision, block=block)
     assert p is not None
-    return poisson_cuda.accept_mask(p, "cpu")
+    mask = poisson_cuda.accept_mask(p, "cpu")
+    for two_phase in two_phase_masks(p):
+        np.testing.assert_array_equal(two_phase, mask)
+    return mask
 
 
 def native_mask(pos, spacing, analyze=None):
@@ -88,6 +104,8 @@ def test_f64_matches_jax_relax_and_native(rng, on_cpu, spacing, n):
     assert want is not None
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, native_mask(pos, spacing))
+    for two_phase in two_phase_masks(poisson_cuda.prep(pos, spacing)):
+        np.testing.assert_array_equal(two_phase, want)
     assert 0 < got.sum() < n
 
 
@@ -115,6 +133,8 @@ def test_f64_analyze_mask_matches_jax_relax(rng, on_cpu):
     np.testing.assert_array_equal(
         got, jax_sampling._poisson_accept_mask(pos, BOUNDS.min, BOUNDS.max,
                                                2.0, analyze))
+    for two_phase in two_phase_masks(poisson_cuda.prep(pos, 2.0, analyze)):
+        np.testing.assert_array_equal(two_phase, want)
 
 
 @pytest.mark.parametrize("precision", ["f64", "f32"])
@@ -160,6 +180,8 @@ def test_prune_keeps_pairs_at_exactly_spacing(precision, axis):
     want = (native_mask(pos, s) if precision == "f64"
             else oracle_f32(pos, s))
     np.testing.assert_array_equal(got, want)
+    for two_phase in two_phase_masks(p):
+        np.testing.assert_array_equal(two_phase, want)
     assert got[:block].all()  # block 0's points are all >= 10s apart
     k_in = dists.index(sf * (1 - 1e-6))
     k_out = dists.index(sf * (1 + 1e-6))

@@ -119,19 +119,24 @@ def cli(pkg, argv):
 
 
 def test_cli_default_run_byte_identical(tmp_path):
+    """The JAX CLI's default run (the native host run) is the port's
+    `--use-device host` and `--use-device cpu` runs, byte for byte."""
     src = tmp_path / "in.las"
     write_las(src, 30_000, 1)
     outs = {}
     for pkg, extra in (("schwarzwald_tpu", []),
-                       ("schwarzwald_tpu_torch", []),
+                       ("schwarzwald_tpu_torch", ["--use-device", "host"]),
                        ("schwarzwald_tpu_torch", ["--use-device", "cpu"])):
-        out = tmp_path / f"{pkg}{len(extra)}"
+        out = tmp_path / f"{pkg}_{'_'.join(extra)}"
         assert cli(pkg, ["--tiler", "-i", str(src), "-o", str(out)]
                    + extra) == 0
-        outs[(pkg, bool(extra))] = out
-    ref = outs[("schwarzwald_tpu", False)]
-    assert_same_tree(ref, outs[("schwarzwald_tpu_torch", False)])
-    assert_same_tree(ref, outs[("schwarzwald_tpu_torch", True)])
+        outs[extra[-1] if extra else "jax"] = out
+    assert_same_tree(outs["jax"], outs["host"])
+    assert_same_tree(outs["jax"], outs["cpu"])
+
+
+# the port's host run: its CLI defaults to the card
+PORT_HOST = ["--use-device", "host"]
 
 
 @pytest.mark.parametrize("sampler", ["RANDOM_GRID", "GRID_CENTER",
@@ -143,8 +148,9 @@ def test_cli_host_runs_of_every_sampler(tmp_path, sampler):
     outs = []
     for pkg in PACKAGES:
         out = tmp_path / pkg
+        extra = PORT_HOST if pkg == "schwarzwald_tpu_torch" else []
         assert cli(pkg, ["--tiler", "-i", str(src), "-o", str(out),
-                         "--sampling", sampler]) == 0
+                         "--sampling", sampler] + extra) == 0
         outs.append(out)
     assert_same_tree(*outs)
 
@@ -163,11 +169,48 @@ def test_port_refuses_cuda_without_a_card(tmp_path):
 
 
 def test_port_auto_resolves_to_host_without_a_card():
+    """`auto` (which once carried on on the host without a card) is
+    refused, and the default, cuda, raises without a card: the host run is
+    reached only through an explicit `host`."""
     from schwarzwald_tpu_torch.ops.device import resolve_use_device
+    from schwarzwald_tpu_torch.process.tiler_process import TilerArguments
 
-    assert resolve_use_device("auto") is None
+    for refused in ("auto", None):
+        with pytest.raises(ValueError, match="cuda, cpu or host"):
+            resolve_use_device(refused)
+    default = TilerArguments(sources=[], output_directory="").use_device
+    assert default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        resolve_use_device(default)
     assert resolve_use_device("cpu") == "cpu"
-    assert resolve_use_device(None) is None
+    assert resolve_use_device("host") is None
+
+
+def test_cli_without_use_device_raises_without_a_card(tmp_path):
+    src = tmp_path / "in.las"
+    write_las(src, 1000, 3)
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError) as err:
+        cli("schwarzwald_tpu_torch", ["--tiler", "-i", str(src), "-o",
+                                      str(out)])
+    assert "host" in str(err.value) and "cpu" in str(err.value)
+    assert not out.exists()
+
+
+def test_tile_defaults_to_the_card(tmp_path):
+    src = tmp_path / "in.las"
+    write_las(src, 1000, 3)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        schwarzwald_tpu_torch.tile([str(src)], str(tmp_path / "out"))
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_refuses_auto(tmp_path, capsys):
+    with pytest.raises(SystemExit):
+        cli("schwarzwald_tpu_torch", ["--tiler", "-i", str(tmp_path),
+                                      "-o", str(tmp_path / "out"),
+                                      "--use-device", "auto"])
+    assert "invalid choice: 'auto'" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -203,7 +246,9 @@ def tiler_args(pkg, src, out):
         checkpoint_interval_s=0.0)  # per-batch: the test kills batch 3
 
 
-@pytest.mark.parametrize("use_device", [None, "cpu"])
+# the host run's case keeps the id it had when the host run was the
+# port's default (use_device None)
+@pytest.mark.parametrize("use_device", ["host", "cpu"], ids=["None", "cpu"])
 def test_port_resumes_interrupted_jax_run(tmp_path, use_device):
     src = tmp_path / "in.las"
     write_las(src, 9000, 5)
