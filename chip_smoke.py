@@ -18,19 +18,21 @@ each phase prints its seconds:
      5,490,148 points in f64 (the plain version skipped there for time);
      the pair CSR built on the card against the host's; every f64 mask
      also against the native host kernel; per case the kernel's time with
-     phase A and phase B apart, its bounds (bytes and the distance tests)
-     and its share of each, and the peak scratch. K1 (Morton interleave) on
-     10M and 10,000,001 random coordinates with one-hot edge rows, also
-     against the host encode, timed with CUDA events. Results must be equal
-     exactly;
+     phase A and phase B apart, its bounds (bytes, and the close pairs'
+     distance tests) and its share of each, and the peak scratch. K1
+     (Morton interleave) on 10M and 10,000,001 random coordinates with
+     one-hot edge rows, also against the host encode, timed with CUDA
+     events. Results must be equal exactly;
   3. the MIN_DISTANCE main path (kernel K2): a 10M-point uniform LAS tiled
      at the defaults (FAST, MIN_DISTANCE, 3D Tiles, 20,000 points per node,
      spacing = diagonal/250) with use_device="cuda" and "host"; the trees
      must be byte-identical (properties.json up to its two timing fields),
      every tile must hold finite positions, the tiles must hold at least
      every input point, and K2 must have been launched. Each device range's
-     stream time is split into upload, prep (AABBs and pair CSR), phase A +
-     B and download, and the ranges must have run on more than one stream;
+     time is split into upload, prep (AABBs and pair CSR), phase A + B and
+     download, each as stream time and as the sending thread's wall and
+     CPU time; each worker thread's ranges must have run on one stream of
+     its own, and the ranges on more than one stream;
   4. the batch step (kernel K1): 10M uniform float64 positions through
      encode_sort_batch on the card and the host grid coordinates through
      encode_sort_grid, against the host encode + sort + histogram; the
@@ -203,23 +205,26 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
 
 
-def poisson_bounds(p) -> dict:
+def poisson_bounds(p, close_pairs: int) -> dict:
     """The least time of one K2 call on these inputs: the bytes (three
     coordinates and the analyze byte in, one mask byte out, per point) over
-    the memory rate, and the distance tests of the AABB-pair formulation
-    (every point pair of a listed block pair, j < i within a block; 8
-    operations each) over the peak rate of the mode."""
+    the memory rate, and the operations the function cannot avoid on this
+    data over the peak rate of the mode: the exact d2 of each of its close
+    pairs, 8 operations each. Also the AABB-pair formulation's count (every
+    point pair of a listed block pair, j < i within a block), which phase
+    A's chunk cull does not all evaluate: shown, not a floor."""
     n, elt = p.n, p.planes.itemsize
     n_bytes = n * (3 * elt + 1 + (p.analyze is not None))
     sizes = [min(p.block, n - b * p.block) for b in range(p.n_blocks)]
     tests = (p.pair_bj.size * p.block * p.block
              + sum(s * (s - 1) // 2 for s in sizes))
-    precision = "f64" if elt == 8 else "f32"
+    peak = PEAK_FLOPS["f64" if elt == 8 else "f32"]
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    op_ms = 8 * tests / PEAK_FLOPS[precision] * 1e3
-    return {"bytes": n_bytes, "tests": tests, "byte_ms": byte_ms,
-            "op_ms": op_ms, "bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms > op_ms else "operations"}
+    op_ms = 8 * close_pairs / peak * 1e3
+    return {"byte_ms": byte_ms, "op_ms": op_ms,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms > op_ms else "operations",
+            "tests": tests, "tests_ms": 8 * tests / peak * 1e3}
 
 
 def kernel_runs(fn, reps: int = 3):
@@ -280,8 +285,11 @@ def phase_poisson_kernel(report: dict) -> None:
             got, k_ms, phases, stats, scratch = kernel_runs(
                 lambda st: poisson_cuda.accept_mask_cuda(
                     planes, ana, p.sq, ptr, bj, stats=st))
+            if p.n <= 262_144 and not name.startswith("dense"):
+                check_phases(name, precision, planes, ana, p, ptr, bj, got,
+                             stats)
             got = got.cpu().numpy()
-            b = poisson_bounds(p)
+            b = poisson_bounds(p, stats["close_entries"])
             plain = "plain skipped (time)"
             if name != ROOT_CASE:
                 want, plain_ms = synced(lambda: poisson_cuda.accept_mask_torch(
@@ -301,11 +309,14 @@ def phase_poisson_kernel(report: dict) -> None:
                   f"windows={stats['windows']} accepted={int(got.sum())} "
                   f"kernel_ms={k_ms:.3f} (phase A {phases['A']:.3f}, "
                   f"phase B {phases['B']:.3f}) {plain}; bound "
-                  f"{b['bound_ms']:.4f} ms by {b['bound_by']} (byte floor "
-                  f"{b['byte_ms']:.4f} ms, the kernel at "
-                  f"{100 * b['byte_ms'] / k_ms:.3f}% of it; {b['tests']:.4g} "
-                  f"distance tests {b['op_ms']:.4f} ms, the kernel at "
-                  f"{100 * b['op_ms'] / k_ms:.2f}%); peak scratch "
+                  f"{b['bound_ms']:.6f} ms by {b['bound_by']}, the kernel "
+                  f"at {100 * b['bound_ms'] / k_ms:.4f}% of it (byte floor "
+                  f"{b['byte_ms']:.6f} ms, the kernel at "
+                  f"{100 * b['byte_ms'] / k_ms:.4f}%; close pairs x 8 "
+                  f"operations {b['op_ms']:.6f} ms, the kernel at "
+                  f"{100 * b['op_ms'] / k_ms:.4f}%; not a floor: the "
+                  f"AABB-pair formulation's {b['tests']:.4g} tests "
+                  f"{b['tests_ms']:.4f} ms); peak scratch "
                   f"{scratch / 2 ** 20:.1f} MiB; native host "
                   f"{native_s * 1e3:.1f} ms", flush=True)
             if precision == "f64" and not np.array_equal(got.view(bool),
@@ -314,11 +325,11 @@ def phase_poisson_kernel(report: dict) -> None:
                                    f"the native host kernel")
             if name.startswith("dense") and stats["windows"] < 2:
                 raise RuntimeError(f"{name}: the kernels ran in one window")
-            if p.n <= 262_144 and not name.startswith("dense"):
-                check_phases(name, precision, planes, ana, p, ptr, bj)
             if precision == "f64" and name in (TIMING_CASE, ROOT_CASE):
-                lists = poisson_cuda.close_lists_cuda(planes, ana, p.sq, ptr,
-                                                      bj)
+                if stats["windows"] != 1:
+                    raise RuntimeError(f"{name}: the kernels ran in "
+                                       f"{stats['windows']} windows")
+                lists = stats["lists"]
                 deps = poisson_cuda.block_deps(lists[0], lists[1], p.n)
                 print(f"kernel poisson {name} f64: phase B waits on "
                       f"{sum(map(len, deps)) / p.n_blocks:.2f} blocks per "
@@ -334,20 +345,23 @@ def phase_poisson_kernel(report: dict) -> None:
     report["max_abs_err"] = max_err
 
 
-def check_phases(name, precision, planes, ana, p, ptr, bj) -> None:
-    """Phase A's lists and phase B's mask on the card against their plain
-    versions, exactly (the same lists in the same order)."""
+def check_phases(name, precision, planes, ana, p, ptr, bj, mask,
+                 stats) -> None:
+    """Phase A's lists of a one-window kernel call (`stats["lists"]`) and
+    its phase B mask against their plain versions, exactly (the same lists
+    in the same order; the plain phase B on the plain lists)."""
     import torch
 
     from schwarzwald_tpu_torch.ops import poisson_cuda
 
-    got = poisson_cuda.close_lists_cuda(planes, ana, p.sq, ptr, bj)
+    if stats["windows"] != 1:
+        raise RuntimeError(f"{name} {precision}: the kernels ran in "
+                           f"{stats['windows']} windows")
     want = poisson_cuda.close_lists_torch(planes, ana, p.sq, ptr, bj)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+    if not all(torch.equal(g, w) for g, w in zip(stats["lists"], want)):
         raise RuntimeError(f"{name} {precision}: phase A's close lists "
                            f"differ from their plain version")
-    if not torch.equal(poisson_cuda.decide_cuda(p.n, *want),
-                       poisson_cuda.decide_torch(p.n, *want)):
+    if not torch.equal(mask, poisson_cuda.decide_torch(p.n, *want)):
         raise RuntimeError(f"{name} {precision}: phase B's mask differs "
                            f"from its plain version")
 
@@ -499,25 +513,40 @@ def phase_min_distance(work: str, report: dict, card: str) -> None:
             raise RuntimeError("the main path launched no Poisson kernel")
         sizes = sorted(r["n"] for r in ranges)
         largest = max(ranges, key=lambda r: r["n"])
-        streams = {r["stream"] for r in ranges}
-        parts = {k: sum(r[k] for r in ranges)
-                 for k in ("upload_ms", "prep_ms", "kernel_ms", "A", "B",
-                           "download_ms", "wall_ms")}
         print(f"main path cuda: {len(ranges)} device ranges, {sum(sizes)} "
               f"points, sizes min/median/max {sizes[0]}/"
-              f"{sizes[len(sizes) // 2]}/{sizes[-1]}, on {len(streams)} "
-              f"streams; summed over the ranges (ms): upload "
-              f"{parts['upload_ms']:.1f}, prep (AABBs and pair CSR) "
-              f"{parts['prep_ms']:.1f}, phase A + B "
-              f"{parts['kernel_ms']:.1f} (A {parts['A']:.1f}, B "
-              f"{parts['B']:.1f}), download {parts['download_ms']:.1f}; "
-              f"host wall inside the path {parts['wall_ms']:.1f}",
-              flush=True)
-        print(f"main path cuda: the root range ({largest['n']} points): "
-              + ", ".join(f"{k} {largest[k]:.2f}" for k in
-                          ("upload_ms", "prep_ms", "kernel_ms", "A", "B",
-                           "download_ms", "wall_ms"))
-              + f", {largest['windows']} windows", flush=True)
+              f"{sizes[len(sizes) // 2]}/{sizes[-1]}; per part, the stream "
+              f"time (CUDA events) / the calling thread's wall time "
+              f"enqueueing it / that thread's CPU time, in ms", flush=True)
+        for label, rs in (("summed over the ranges", ranges),
+                          (f"the root range ({largest['n']} points, "
+                           f"{largest['windows']} windows)", [largest])):
+            split = "; ".join(
+                f"{part} {sum(r[f'{part}_ms'] for r in rs):.1f} / "
+                f"{sum(r[f'host_{part}_ms'] for r in rs):.1f} / "
+                f"{sum(r[f'cpu_{part}_ms'] for r in rs):.1f}"
+                for part in ("upload", "prep", "kernel", "download"))
+            print(f"main path cuda: {label}: {split} (phase A "
+                  f"{sum(r['A'] for r in rs):.1f}, B "
+                  f"{sum(r['B'] for r in rs):.1f}); final synchronise "
+                  f"{sum(r['wait_ms'] for r in rs):.1f}", flush=True)
+        # one stream per worker thread, no stream shared between threads
+        streams = {r["stream"] for r in ranges}
+        threads = {}
+        for r in ranges:
+            threads.setdefault(r["thread"], set()).add(r["stream"])
+        pools = {}
+        for name in threads:  # ThreadPoolExecutor-<pool>_<worker>
+            pool = name.rsplit("_", 1)[0]
+            pools[pool] = pools.get(pool, 0) + 1
+        print(f"main path cuda: {len(threads)} threads sent ranges "
+              f"({', '.join(f'{p} x{k}' for p, k in sorted(pools.items()))})"
+              f", on {len(streams)} streams", flush=True)
+        if any(len(s) != 1 for s in threads.values()):
+            raise RuntimeError("a worker thread ran its ranges on more than "
+                               "one stream")
+        if len(streams) != len(threads):
+            raise RuntimeError("worker threads shared a stream")
         if len(streams) < 2 and len(ranges) > 1 and (os.cpu_count() or 1) > 1:
             raise RuntimeError("every device range ran on one stream while "
                                "the engine had more than one worker")

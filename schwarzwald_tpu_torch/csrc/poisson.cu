@@ -16,12 +16,16 @@
 // multiply-add, rounds differently from the reference.
 //
 // Bounds (uniform 262,144 points in a 64-unit cube at spacing 2: 512 blocks
-// of 512 points, 23.93 cross pairs per block):
+// of 512 points, 23.67 cross pairs per block, 4.24e6 close pairs):
 //   * bytes: 3 coordinates in and one mask byte out per point, 25 B in f64,
 //     6.55 MB, 0.002 ms at 3.35 TB/s;
-//   * operations: every pair of points in AABB-adjacent blocks is a distance
-//     test of 8 f64 operations, 3.28e9 tests, 26 GFLOP, 0.77 ms at
-//     34 TFLOP/s (f64 outside the tensor cores).
+//   * operations: the exact d2 of every close pair, 8 f64 operations each,
+//     34 MFLOP, 0.001 ms at 34 TFLOP/s (f64 outside the tensor cores). The
+//     AABB-pair formulation would test every pair of points in adjacent
+//     blocks, 3.24e9 tests, 26 GFLOP, 0.76 ms; phase A's chunk cull skips
+//     most of them, so that count is not a floor.
+// The bound is the byte floor, and the kernel's time is far from it: what
+// holds it is phase B's chain of waits, below, not arithmetic.
 //
 // Design. The range is cut into blocks of BLOCK consecutive points. The
 // wrapper (ops/poisson_cuda.py) builds on the card, in torch ops, the CSR

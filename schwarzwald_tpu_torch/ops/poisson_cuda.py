@@ -21,13 +21,13 @@ The mask does not depend on the block size. Two formulations compute it:
     close matrix);
   * two-phase (the kernels, `accept_mask_cuda`; plain version
     `accept_mask_two_phase_torch`): phase A lists, for every point, its
-    earlier close points (`close_lists_*`), which depends on no decision;
-    phase B decides the blocks in ascending order over those lists
-    (`decide_*`), each block waiting only on the blocks its lists name
-    (`block_deps`). The lists are held under CLOSE_BUDGET entries: past it,
-    both phases run window by window over the blocks (`plan_windows`), and
-    a window's phase A resolves close points of earlier windows against
-    their final mask.
+    earlier close points (plain version `close_lists_torch`), which
+    depends on no decision; phase B decides the blocks in ascending order
+    over those lists (`decide_torch`), each block waiting only on the
+    blocks its lists name (`block_deps`). The lists are held under
+    CLOSE_BUDGET entries: past it, both phases run window by window over
+    the blocks (`plan_windows`), and a window's phase A resolves close
+    points of earlier windows against their final mask.
 
 Precision modes:
   * "f64" (the engine's): d2 in float64 against the float32 spacing
@@ -404,52 +404,6 @@ def _offsets(counts: torch.Tensor) -> torch.Tensor:
     return offsets
 
 
-def close_lists_cuda(planes: torch.Tensor, analyze: torch.Tensor | None,
-                     sq: float, pair_ptr: torch.Tensor,
-                     pair_bj: torch.Tensor) -> tuple:
-    """Phase A over the whole range as one window (no budget): (offsets
-    int64 (n_blocks * BLOCK + 1,), idx int32, blocked uint8 (n_blocks *
-    BLOCK,)), the kernel counterpart of `close_lists_torch`."""
-    precision, n, nb = _checked_inputs(planes, analyze, pair_ptr, pair_bj)
-    fns = _kernel_fns(precision)
-    with torch.cuda.device(planes.device):
-        planes = _masked(planes, analyze)
-        counts = torch.empty(nb * BLOCK, dtype=torch.int32,
-                             device=planes.device)
-        _close_count(fns, planes, n, sq, pair_ptr, pair_bj, 0, nb, counts)
-        offsets = _offsets(counts)
-        idx = torch.empty(int(offsets[-1]), dtype=torch.int32,
-                          device=planes.device)
-        blocked = torch.empty(nb * BLOCK, dtype=torch.uint8,
-                              device=planes.device)
-        _close_fill(fns, planes, n, sq, pair_ptr, pair_bj, 0, nb, None,
-                    offsets, idx, blocked)
-    return offsets, idx, blocked
-
-
-def decide_cuda(n: int, offsets: torch.Tensor, idx: torch.Tensor,
-                blocked: torch.Tensor) -> torch.Tensor:
-    """Phase B over the whole range as one window: the (n,) uint8 mask, the
-    kernel counterpart of `decide_torch`."""
-    device = offsets.device
-    if device.type != "cuda":
-        raise ValueError(f"the Poisson kernels need CUDA tensors, got "
-                         f"{device}")
-    nb = -(-n // BLOCK)
-    _check(offsets, "offsets", torch.int64, (nb * BLOCK + 1,), device)
-    _check(idx, "idx", torch.int32, (idx.shape[0],), device)
-    _check(blocked, "blocked", torch.uint8, (nb * BLOCK,), device)
-    fns = _kernel_fns("f64")  # phase B is the same in both modes
-    with torch.cuda.device(device):
-        out = torch.empty(n, dtype=torch.uint8, device=device)
-        ticket = torch.zeros(1, dtype=torch.int32, device=device)
-        flags = torch.zeros(nb, dtype=torch.int32, device=device)
-        state = torch.zeros(n, dtype=torch.uint8, device=device)
-        _decide(fns, n, 0, nb, offsets, idx, blocked, ticket, flags, state,
-                out)
-    return out
-
-
 def accept_mask_cuda(planes: torch.Tensor, analyze: torch.Tensor | None,
                      sq: float, pair_ptr: torch.Tensor,
                      pair_bj: torch.Tensor, budget: int = CLOSE_BUDGET,
@@ -460,8 +414,11 @@ def accept_mask_cuda(planes: torch.Tensor, analyze: torch.Tensor | None,
     fill and phase B. Returns the (n,) uint8 accept mask on the card.
 
     `stats`, when given, receives "windows", "close_entries" (the full
-    count) and "events": (phase, start, end) CUDA events, read with
-    `phase_ms` once the stream is synchronised."""
+    count), "lists": phase A's (offsets, idx, blocked) of the last window
+    (for a range in one window, the whole range's, as `close_lists_torch`
+    gives them; idx is valid up to offsets[-1]) and "events": (phase,
+    start, end) CUDA events, read with `phase_ms` once the stream is
+    synchronised."""
     precision, n, nb = _checked_inputs(planes, analyze, pair_ptr, pair_bj)
     fns = _kernel_fns(precision)
     device = planes.device
@@ -505,7 +462,8 @@ def accept_mask_cuda(planes: torch.Tensor, analyze: torch.Tensor | None,
                 events += [("A", a0, a1), ("B", a1, mark())]
         if stats is not None:
             stats.update(windows=len(windows),
-                         close_entries=int(totals.sum()), events=events)
+                         close_entries=int(totals.sum()), events=events,
+                         lists=(offsets, idx, blocked[p0:p1]))
     return out
 
 
@@ -521,9 +479,15 @@ def phase_ms(stats: dict) -> dict:
 _tls = threading.local()
 
 
-def thread_stream(device: torch.device) -> torch.cuda.Stream:
-    """The calling thread's own CUDA stream on `device`, so that ranges
-    sent from several worker threads run on the card at once."""
+def thread_stream(device: torch.device | str) -> torch.cuda.Stream:
+    """The calling thread's CUDA stream on `device`: taken from PyTorch's
+    stream pool (32 per device, handed out in turn) at the thread's first
+    call and kept for its later calls, so that ranges sent from several
+    worker threads run on the card at once. `cuda` with no index means the
+    current device."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
     stream = getattr(_tls, "stream", None)
     if stream is None or stream.device != device:
         stream = _tls.stream = torch.cuda.Stream(device)
@@ -537,7 +501,13 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
     """Accept mask of one Morton-sorted range on the card, on the calling
     thread's stream: upload from pinned memory, the pair CSR on the card
     (None past the pair gate), the kernels, the mask download. Synchronises
-    only that stream. Returns a numpy bool array."""
+    only that stream. Returns a numpy bool array.
+
+    With `trace` set, the range's record holds, for each part (upload,
+    prep, kernel, download), its stream time from CUDA events (`*_ms`), the
+    calling thread's wall time enqueueing it, synchronises inside the part
+    included (`host_*_ms`), and that thread's CPU time over the same span
+    (`cpu_*_ms`); `wait_ms` is the wall time of the final synchronise."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"range_mask_cuda needs a CUDA device, got {device}")
@@ -546,7 +516,6 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
         return None
     stream = thread_stream(device)
     dtype = torch.float64 if precision == "f64" else torch.float32
-    t0 = time.perf_counter()
     records = trace
     marks = []
 
@@ -554,7 +523,7 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
         if records is not None:
             e = torch.cuda.Event(enable_timing=True)
             e.record()
-            marks.append(e)
+            marks.append((e, time.perf_counter(), time.thread_time()))
 
     with torch.cuda.device(device), torch.cuda.stream(stream):
         mark()
@@ -583,13 +552,17 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
         host.copy_(out, non_blocking=True)
         mark()
         stream.synchronize()
+        synced = time.perf_counter()
     if records is not None:
-        parts = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-        record = dict(zip(("upload_ms", "prep_ms", "kernel_ms",
-                           "download_ms"), parts))
-        record.update(n=n, stream=stream.cuda_stream,
-                      wall_ms=(time.perf_counter() - t0) * 1e3,
-                      windows=stats["windows"], **phase_ms(stats))
+        record = {"n": n, "stream": stream.cuda_stream,
+                  "thread": threading.current_thread().name,
+                  "windows": stats["windows"], **phase_ms(stats),
+                  "wait_ms": (synced - marks[-1][1]) * 1e3}
+        for part, (a, b) in zip(("upload", "prep", "kernel", "download"),
+                                zip(marks, marks[1:])):
+            record[f"{part}_ms"] = a[0].elapsed_time(b[0])
+            record[f"host_{part}_ms"] = (b[1] - a[1]) * 1e3
+            record[f"cpu_{part}_ms"] = (b[2] - a[2]) * 1e3
         with _lock:
             records.append(record)
     return host.numpy().view(bool).copy()

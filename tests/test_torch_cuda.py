@@ -93,11 +93,13 @@ def test_phase_kernels_match_their_plain_versions(cuda, precision, case):
     pos, spacing, analyze = cases()[case]
     p = poisson_cuda.prep(pos, spacing, analyze, precision)
     planes, ana, ptr, bj = on_card(p, cuda)
-    got = poisson_cuda.close_lists_cuda(planes, ana, p.sq, ptr, bj)
+    stats = {}
+    mask = poisson_cuda.accept_mask_cuda(planes, ana, p.sq, ptr, bj,
+                                         stats=stats)
+    assert stats["windows"] == 1
     want = poisson_cuda.close_lists_torch(planes, ana, p.sq, ptr, bj)
-    for g, w in zip(got, want):
+    for g, w in zip(stats["lists"], want):
         assert torch.equal(g, w)
-    mask = poisson_cuda.decide_cuda(p.n, *want)
     assert torch.equal(mask, poisson_cuda.decide_torch(p.n, *want))
     assert torch.equal(mask, poisson_cuda.accept_mask_torch(
         planes, ana, p.sq, ptr, bj))
@@ -134,8 +136,9 @@ def test_pair_csr_on_the_card_equals_numpy(cuda, precision):
 
 
 def test_ranges_from_threads_at_once_equal_a_serial_run(cuda):
-    """8 threads send ranges at once, each on its own stream: the masks
-    are those of a serial run and of the native host kernel."""
+    """8 threads send ranges at once, each on a stream of its own that it
+    keeps: the masks are those of a serial run and of the native host
+    kernel."""
     import concurrent.futures as cf
 
     ranges = [(sorted_uniform(30_000 + 1000 * k, 20 + k), 1.0 + 0.25 * k,
@@ -155,7 +158,12 @@ def test_ranges_from_threads_at_once_equal_a_serial_run(cuda):
     finally:
         poisson_cuda.trace = None
     assert len({s for _, s in results}) > 1
-    assert len(records) == 8 and len({r["stream"] for r in records}) > 1
+    assert len(records) == 8
+    threads = {}
+    for r in records:
+        threads.setdefault(r["thread"], set()).add(r["stream"])
+    assert all(len(s) == 1 for s in threads.values())
+    assert len({r["stream"] for r in records}) == len(threads) > 1
     for (pos, spacing, analyze), want, (got, _) in zip(ranges, serial,
                                                        results):
         np.testing.assert_array_equal(got, want)

@@ -287,11 +287,42 @@ def test_phase_kernels_need_cuda_tensors():
     planes, ana, ptr, bj = tensors(p)
     before = poisson_cuda.snapshot()["launches"]
     with pytest.raises(ValueError, match="CUDA"):
-        poisson_cuda.close_lists_cuda(planes, ana, p.sq, ptr, bj)
-    lists = poisson_cuda.close_lists_torch(planes, ana, p.sq, ptr, bj)
+        poisson_cuda.accept_mask_cuda(planes, ana, p.sq, ptr, bj)
     with pytest.raises(ValueError, match="CUDA"):
-        poisson_cuda.decide_cuda(p.n, *lists)
+        poisson_cuda.accept_mask_cuda(planes, ana, p.sq, ptr, bj,
+                                      stats={})
     with pytest.raises(ValueError, match="CUDA"):
         poisson_cuda.range_mask_cuda(sorted_uniform(4096, 3), 2.0,
                                      device="cpu")
     assert poisson_cuda.snapshot()["launches"] == before
+
+
+def test_each_thread_keeps_one_stream(monkeypatch):
+    """thread_stream hands a thread the same stream on every call, whether
+    the device names its index or not, and another thread another stream
+    (PyTorch's stream pool stood in for by a recorder, as this machine has
+    no card)."""
+    import threading
+
+    made = []
+
+    class PoolStream:
+        def __init__(self, device):
+            self.device = torch.device(device)
+            made.append(self)
+
+    monkeypatch.setattr(poisson_cuda, "_tls", threading.local())
+    monkeypatch.setattr(torch.cuda, "Stream", PoolStream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mine = [poisson_cuda.thread_stream(d)
+            for d in (torch.device("cuda"), "cuda", "cuda:0",
+                      torch.device("cuda", 0))]
+    assert all(s is mine[0] for s in mine)
+    assert mine[0].device == torch.device("cuda", 0)
+    other = []
+    worker = threading.Thread(target=lambda: other.extend(
+        poisson_cuda.thread_stream("cuda") for _ in range(3)))
+    worker.start()
+    worker.join()
+    assert all(s is other[0] for s in other) and other[0] is not mine[0]
+    assert len(made) == 2
