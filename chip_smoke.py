@@ -43,7 +43,19 @@ each phase prints its seconds:
      use_device="cuda" and on the host; byte-identical trees, device sweeps
      persisted, fresh start nodes above 20,000 points, no re-rooted range,
      and levels assigned at 3 or more depths;
-  6. the summary: one JSON line for the kernels, then the result line.
+  6. multichip and multihost: dryrun_multichip(4) on the card (K1 once per
+     shard, the lossless exchange, a miniature tile against single-device
+     FAST); phase 3's 10M uniform cloud tiled with MIN_DISTANCE over 4
+     shards (--multichip 4, every shard on the one card) and phase 5's 10M
+     clustered cloud with RANDOM_GRID, each byte-identical to the one-card
+     run at start level 3, with the exchange's synchronised time per batch,
+     the points per shard, K2's launches and device ranges, the sweep time
+     per owner; the uniform cloud as two 5M files tiled by two CLI
+     processes (--multihost 0 2 and 1 2) sharing the card, and again on the
+     host: the two trees byte-identical, .mh-exchange/ gone, every point
+     once at and below the start level;
+  7. the summary: one JSON line for the kernels (with each kernel's
+     launches on every path that ran it), then the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -509,6 +521,8 @@ def phase_min_distance(work: str, report: dict, card: str) -> None:
                 raise RuntimeError("the host run launched the kernels")
             continue
         report["launches"] = counts["launches"]
+        report["launches_by_path"]["3 MIN_DISTANCE main path"] = \
+            counts["launches"]
         if counts["launches"] <= 0 or not ranges:
             raise RuntimeError("the main path launched no Poisson kernel")
         sizes = sorted(r["n"] for r in ranges)
@@ -619,6 +633,7 @@ def phase_batch_step(report: dict, card: str) -> None:
           f"{sorted(set(c_levels.tolist()))}; K1 launches {launches}",
           flush=True)
     report["launches"] = launches
+    report["launches_by_path"]["4 batch step"] = launches
     if launches <= 0:
         raise RuntimeError("the batch step launched no Morton kernel")
 
@@ -748,6 +763,238 @@ def phase_grid_samplers(work: str, card: str) -> None:
             shutil.rmtree(os.path.join(work, f"{sampler}_{mode}"))
 
 
+# -- phase 6: multichip and multihost -----------------------------------------
+
+SHARDS = 4  # the JAX package's dry run and tests use --multichip 4
+START_LEVEL = 3  # the multi-device ownership level and multihost's plan level
+
+# one host of a --multihost run: the port's CLI, then the Poisson kernel's
+# counters of this process and its import and run seconds on a line of
+# their own
+COUNTERS = "k2 counters "
+HOST_SCRIPT = ("import json, sys, time\n"
+               "t0 = time.perf_counter()\n"
+               "from schwarzwald_tpu_torch import cli\n"
+               "from schwarzwald_tpu_torch.ops import poisson_cuda\n"
+               "t1 = time.perf_counter()\n"
+               "rc = cli.main(sys.argv[1:])\n"
+               f"print({COUNTERS!r} + json.dumps(dict(\n"
+               "    poisson_cuda.snapshot(), import_s=t1 - t0,\n"
+               "    run_s=time.perf_counter() - t1)))\n"
+               "sys.exit(rc)\n")
+
+
+def tile_once(src: str, out: str, **options):
+    """(TilerProcess after its run, seconds) of one run at the defaults of
+    tile(): diagonal fraction 250, FAST, 3D Tiles."""
+    from schwarzwald_tpu_torch.process.tiler_process import (TilerArguments,
+                                                             TilerProcess)
+
+    proc = TilerProcess(TilerArguments(sources=[src], output_directory=out,
+                                       diagonal_fraction=250, **options))
+    t0 = time.perf_counter()
+    proc.run()
+    return proc, time.perf_counter() - t0
+
+
+def deep_points(root: str, level: int = START_LEVEL) -> int:
+    """Points of the tiles at and below `level`: every input point exactly
+    once under FAST, whose ancestors repeat points of their children."""
+    from schwarzwald_tpu_torch.io.pnts import read_pnts
+
+    total = 0
+    for rel, full in tree_files(root).items():
+        name = os.path.basename(rel)
+        if name.endswith(".pnts") and len(name[:-5]) - 1 >= level:
+            total += read_pnts(full)[0].count
+    return total
+
+
+def run_hosts(files, out: str, use_device: str, card: str) -> tuple:
+    """Two CLI processes, `--multihost 0 2` and `--multihost 1 2`, sharing
+    `out` (and the card). Returns (seconds, K2 launches of both)."""
+    env = dict(os.environ, PYTHONPATH=ROOT, SCHWARZWALD_TPU_NO_UI="1")
+    argv = ["--tiler", "-i", *files, "-o", out, "--use-device", use_device,
+            "--sampling", "MIN_DISTANCE"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", HOST_SCRIPT, *argv,
+                               "--multihost", str(i), "2"], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    try:
+        outputs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    launches = 0
+    for i, (p, text) in enumerate(zip(procs, outputs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"host {i} ({use_device}) exited "
+                               f"{p.returncode}: {text[-3000:]}")
+        lines = text.splitlines()
+        counts = [ln for ln in lines if ln.startswith(COUNTERS)][-1]
+        counts = json.loads(counts[len(COUNTERS):])
+        stats = [ln for ln in lines if ln.startswith("Device stats: ")][-1]
+        print(f"multihost {use_device}: host {i} on {card}: K2 counters "
+              f"{counts}; {stats}", flush=True)
+        launches += counts["launches"]
+    return seconds, launches
+
+
+def phase_multichip(work: str, k1: dict, k2: dict, card: str) -> None:
+    """dryrun_multichip(4); the 10M MIN_DISTANCE and RANDOM_GRID runs over
+    4 shards against the single-card runs at start level 3, byte for byte;
+    two --multihost CLI processes on the card against two on the host."""
+    import numpy as np
+    import torch
+
+    from schwarzwald_tpu_torch.core.aabb import AABB
+    from schwarzwald_tpu_torch.core.pointbuffer import PointBuffer
+    from schwarzwald_tpu_torch.entry import dryrun_multichip
+    from schwarzwald_tpu_torch.io import las
+    from schwarzwald_tpu_torch.ops import (device_tiling, morton_cuda,
+                                           poisson_cuda)
+
+    morton_cuda.reset_counters()
+    t0 = time.perf_counter()
+    dryrun_multichip(SHARDS)
+    launches = morton_cuda.snapshot()["launches"]
+    print(f"multichip: dryrun_multichip({SHARDS}) passed in "
+          f"{time.perf_counter() - t0:.2f} s on {card}; K1 launches "
+          f"{launches}", flush=True)
+    k1["launches_by_path"][f"6 dryrun_multichip({SHARDS})"] = launches
+    if launches != SHARDS:
+        raise RuntimeError(f"dryrun_multichip({SHARDS}) launched K1 "
+                           f"{launches} times, not once per shard")
+
+    # MIN_DISTANCE, 10M uniform: the exchange, then K2 per range
+    src = os.path.join(work, "cloud.las")
+    write_uniform_las(src, MAIN_PATH_POINTS)
+    for label, options in (("multichip", {"multichip": SHARDS}),
+                           ("single", {"fixed_start_level": START_LEVEL})):
+        poisson_cuda.trace = []
+        poisson_cuda.reset_counters()
+        try:
+            proc, seconds = tile_once(src, os.path.join(work, f"md_{label}"),
+                                      use_device="cuda", **options)
+        finally:
+            counts = poisson_cuda.snapshot()
+            ranges, poisson_cuda.trace = poisson_cuda.trace, None
+        stats = proc.device_stats
+        print(f"multichip MIN_DISTANCE {label}: {seconds:.2f} s, "
+              f"{MAIN_PATH_POINTS / seconds:.0f} points/s on {card}; "
+              f"{len(ranges)} device ranges; K2 counters {counts}; "
+              f"{stats}", flush=True)
+        if counts["launches"] <= 0 or not ranges:
+            raise RuntimeError(f"MIN_DISTANCE {label}: no K2 launch")
+        if label == "multichip":
+            k2["launches_by_path"][f"6 MIN_DISTANCE --multichip {SHARDS}"] = \
+                counts["launches"]
+            if stats["shards"] != SHARDS or stats["cards"] < 1:
+                raise RuntimeError(f"the run had {stats['shards']} shards "
+                                   f"on {stats['cards']} cards")
+            if sum(stats["points_per_shard"]) != MAIN_PATH_POINTS:
+                raise RuntimeError("the shards did not own every point")
+            print(f"multichip MIN_DISTANCE: exchange "
+                  f"{', '.join(f'{s * 1e3:.1f}' for s in stats['exchange_s'])}"
+                  f" ms per batch (synchronised, host copies included) on "
+                  f"{card}", flush=True)
+    n_files = compare_trees(os.path.join(work, "md_multichip"),
+                            os.path.join(work, "md_single"))
+    deep = deep_points(os.path.join(work, "md_multichip"))
+    print(f"multichip MIN_DISTANCE: {n_files} files byte-identical "
+          f"({SHARDS} shards vs one card at start level {START_LEVEL}); "
+          f"{deep} points at and below level {START_LEVEL}", flush=True)
+    if deep != MAIN_PATH_POINTS:
+        raise RuntimeError(f"{deep} points at and below the start level")
+    for label in ("multichip", "single"):
+        shutil.rmtree(os.path.join(work, f"md_{label}"))
+
+    # two hosts: the same cloud as two 5M files, one per host
+    os.remove(src)
+    pos = np.random.default_rng(7).uniform(1.0, 999.0, (MAIN_PATH_POINTS, 3))
+    half = MAIN_PATH_POINTS // 2
+    parts = []
+    for i, part in enumerate((pos[:half], pos[half:])):
+        path = os.path.join(work, f"part{i}.las")
+        las.write_las(path, PointBuffer(part), AABB([0.0] * 3, [1000.0] * 3))
+        parts.append(path)
+    del pos
+    for mode in ("cuda", "host"):
+        out = os.path.join(work, f"mh_{mode}")
+        seconds, launches = run_hosts(parts, out, mode, card)
+        print(f"multihost {mode}: two processes, {seconds:.2f} s, "
+              f"{MAIN_PATH_POINTS / seconds:.0f} points/s on {card}; K2 "
+              f"launches {launches}", flush=True)
+        if os.path.exists(os.path.join(out, ".mh-exchange")):
+            raise RuntimeError(f"multihost {mode}: .mh-exchange/ is left")
+        if mode == "cuda":
+            k2["launches_by_path"]["6 MIN_DISTANCE --multihost 0 2 + 1 2"] = \
+                launches
+            if launches <= 0:
+                raise RuntimeError("the two cuda hosts launched no K2")
+        elif launches:
+            raise RuntimeError("the two host-run hosts launched K2")
+    n_files = compare_trees(os.path.join(work, "mh_cuda"),
+                            os.path.join(work, "mh_host"))
+    deep = deep_points(os.path.join(work, "mh_cuda"))
+    print(f"multihost: {n_files} files byte-identical (two cuda hosts vs two "
+          f"host-run hosts); {deep} points at and below level "
+          f"{START_LEVEL}", flush=True)
+    if deep != MAIN_PATH_POINTS:
+        raise RuntimeError(f"{deep} points at and below the start level")
+    for name in ("mh_cuda", "mh_host", *map(os.path.basename, parts)):
+        path = os.path.join(work, name)
+        shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+
+    # RANDOM_GRID, 10M clustered: one sweep per owner, on the owner's device
+    src = os.path.join(work, "clustered.las")
+    write_clustered_las(src, MAIN_PATH_POINTS, 17)
+    sweeps = []
+    select = device_tiling.octree_select_grid
+
+    def timed_select(key, *args, **kwargs):  # observation only
+        torch.cuda.synchronize(key.device)
+        t = time.perf_counter()
+        out = select(key, *args, **kwargs)
+        torch.cuda.synchronize(key.device)
+        sweeps.append((str(key.device), key.shape[0],
+                       time.perf_counter() - t))
+        return out
+
+    for label, options in (("multichip", {"multichip": SHARDS}),
+                           ("single", {"fixed_start_level": START_LEVEL})):
+        sweeps.clear()
+        device_tiling.octree_select_grid = timed_select
+        try:
+            proc, seconds = tile_once(src, os.path.join(work, f"rg_{label}"),
+                                      use_device="cuda",
+                                      sampling_strategy="RANDOM_GRID",
+                                      **options)
+        finally:
+            device_tiling.octree_select_grid = select
+        stats = proc.device_stats
+        print(f"multichip RANDOM_GRID {label}: {seconds:.2f} s, "
+              f"{MAIN_PATH_POINTS / seconds:.0f} points/s on {card}; "
+              f"{stats}", flush=True)
+        for g, (dev, pts, s) in enumerate(sweeps):
+            print(f"multichip RANDOM_GRID {label}: sweep {g} on {dev}: "
+                  f"{pts} points {s * 1e3:.1f} ms on {card}", flush=True)
+        if stats["device_sweeps_ok"] <= 0:
+            raise RuntimeError(f"RANDOM_GRID {label}: no device sweep")
+    n_files = compare_trees(os.path.join(work, "rg_multichip"),
+                            os.path.join(work, "rg_single"))
+    print(f"multichip RANDOM_GRID: {n_files} files byte-identical "
+          f"({SHARDS} shards vs one card at start level {START_LEVEL})",
+          flush=True)
+    shutil.rmtree(work)
+    os.makedirs(work)
+
+
 # -- main --------------------------------------------------------------------------
 
 def timed_phase(name: str, fn, *args) -> None:
@@ -786,11 +1033,13 @@ def main() -> int:
     k2 = {"name": "poisson_accept_mask", "route": "cuda",
           "source": "schwarzwald_tpu_torch/csrc/poisson.cu",
           "replaces": "schwarzwald_tpu/ops/poisson_pallas.py:135",
-          "library_ms": None, "at": f"{TIMING_CASE} f64"}
+          "library_ms": None, "at": f"{TIMING_CASE} f64",
+          "launches_by_path": {}}
     k1 = {"name": "morton_interleave", "route": "cuda",
           "source": "schwarzwald_tpu_torch/csrc/morton.cu",
           "replaces": "schwarzwald_tpu/ops/device.py:217",
-          "library_ms": None, "at": f"n={K1_SIZES[0]}"}
+          "library_ms": None, "at": f"n={K1_SIZES[0]}",
+          "launches_by_path": {}}
     timed_phase("1 build", phase_build)
     timed_phase("2 K2 vs plain", phase_poisson_kernel, k2)
     timed_phase("2 K1 vs plain", phase_morton_kernel, k1)
@@ -803,12 +1052,14 @@ def main() -> int:
                     smi)
         timed_phase("4 batch step", phase_batch_step, k1, smi)
         timed_phase("5 grid samplers", phase_grid_samplers, work, smi)
+        timed_phase("6 multichip and multihost", phase_multichip, work, k1,
+                    k2, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "at")
+            "library_ms", "at", "launches_by_path")
     kernels = [{k: r[k] for k in keys} for r in (k1, k2)]
     kernels[1].update({k: k2[k] for k in ("phase_a_ms", "phase_b_ms",
                                           "scratch_mib")})

@@ -10,7 +10,11 @@ grid samplers' fresh octree assignment is a level-synchronous sweep in
 torch ops (ops/device_tiling.py). `--use-device host` is the native host
 run, `--use-device cpu` the kernels' plain-torch versions. The batch step (ops/device.py, entry.py) runs the
 Morton interleave as a hand-written CUDA kernel (csrc/morton.cu,
-ops/morton_cuda.py). Output is byte-identical to the host run.
+ops/morton_cuda.py). `--multichip N` shards each batch over N devices
+through a lossless exchange (ops/device.py ShardedExchange, on the cards,
+N shards on fewer cards when need be); `--multihost i n` splits the files
+and the octree over hosts that share the output directory
+(parallel/multihost.py). Output is byte-identical to the host run.
 
 Reference parity targets (cited throughout as reference file:line):
   - Octree structure & per-node point selection semantics:
@@ -62,11 +66,15 @@ def tile(sources, output_directory, **options):
     TilerArguments fields (spacing, diagonal_fraction, sampling_strategy,
     tiling_strategy, output_format, max_points_per_node, use_device, ...).
     `use_device` is "cuda" unless given ("cpu" or "host" otherwise), and
-    raises without a card. Returns the PerformanceStats of the run.
+    raises without a card. `multichip=N` shards each batch over N devices
+    (parallel/multidevice.py); `multihost_index=i, multihost_count=n` runs
+    host i of n sharing `output_directory` (parallel/multihost.py).
+    Returns the PerformanceStats of the run.
 
         import schwarzwald_tpu_torch as sz
         sz.tile(["cloud.las"], "out/")                     # on the card
         sz.tile(["cloud.las"], "out/", use_device="host")  # host only
+        sz.tile(["cloud.las"], "out/", multichip=4)        # 4 shards
     """
     from .core.attributes import OutputFormat
     from .process.tiler_process import TilerArguments, TilerProcess

@@ -115,9 +115,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "CUDA card, cpu their plain PyTorch versions, host "
                         "the native host kernels only")
     p.add_argument("--multichip", type=int, default=0,
-                   help="Shard every batch's sort + octree split across an "
-                        "N-device mesh (lossless all_to_all point exchange; "
-                        "FAST semantics at the mesh ownership level)")
+                   help="Shard every batch's sort + octree split over N "
+                        "shards (lossless point exchange to the owning "
+                        "shard; FAST semantics at the ownership level 3). "
+                        "Under --use-device cuda shard d runs on card "
+                        "d %% (number of cards); under cpu or host on the "
+                        "CPU")
     p.add_argument("--no-packed-spill", action="store_true",
                    help="Write user-facing node files on every visit "
                         "instead of spilling to the packed arena and "

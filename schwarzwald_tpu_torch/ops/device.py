@@ -11,9 +11,14 @@ positions to the 2^21 grid, interleave the grid coordinates into Morton keys
 as payload, and count the points of every node at the start level. A key is
 one non-negative torch.int64; the JAX package split it into (hi, lo)
 uint32 words (`keys_to_hi_lo` rebuilds them for comparisons).
+
+The multi-device exchange (`ShardedExchange`, schwarzwald_tpu/ops/device.py:
+429-621) routes a batch's (key, id) pairs to the shards that own their
+octree blocks, in torch ops on the shards' devices.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -138,3 +143,104 @@ def keys_to_hi_lo(keys) -> tuple[np.ndarray, np.ndarray]:
          else np.asarray(keys)).astype(np.int64).view(np.uint64)
     return ((k >> np.uint64(32)).astype(np.uint32),
             (k & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+# -- the multi-device exchange -------------------------------------------------
+
+def _synchronize(devices) -> None:
+    """Wait for every CUDA device among `devices` (CPU work is synchronous)."""
+    for dev in {torch.device(d) for d in devices}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+class ShardedExchange:
+    """The lossless multi-device batch exchange
+    (schwarzwald_tpu/ops/device.py:429-621): every point travels as a
+    (key, id) pair to the shard that owns its octree block, in torch ops on
+    the shards' devices.
+
+    The batch is cut into contiguous spans, per = ceil(n / n_dev), one per
+    shard. Each shard sorts its span stably by key, counts it per
+    level-`level` cell (the start-level histogram, summed over the shards)
+    and cuts the sorted span into one run per destination. Ownership
+    stripes the cells of `cell_range` (all 8**level by default) in
+    contiguous blocks over the shards; cells outside it stay on the
+    boundary shards (the clip of the JAX `_dest_of`), never dropped. So
+    ownership is monotone in the key, each destination's run is contiguous
+    in the sorted span, and its edges come from a searchsorted over the
+    block edges. Each owner concatenates the runs it receives in source
+    order and sorts them stably: the owners' outputs, concatenated, are the
+    stable sort of the whole batch.
+
+    The JAX program padded the shards with sentinel keys, sized its
+    all_to_all by a power-of-two capacity and split keys into uint32 words,
+    all for XLA's static shapes; here keys stay non-negative int64 and ids
+    int64. Observability: `route_seconds` (each route call, synchronised)
+    and `owned_points` (per shard, summed over the calls).
+    """
+
+    def __init__(self, mesh, level: int = 3, cell_range=None):
+        self.mesh = [torch.device(d) for d in mesh]
+        self.level = level
+        self.n_dev = len(self.mesh)
+        lo, hi = (0, 8 ** level) if cell_range is None else cell_range
+        self.cell_range = (int(lo), int(hi))
+        span = self.cell_range[1] - self.cell_range[0]
+        # the first cell of destination d: (c - lo) * n_dev // span >= d
+        # holds iff c >= lo + ceil(d * span / n_dev)
+        self._edges = [self.cell_range[0] + -(-d * span // self.n_dev)
+                       for d in range(1, self.n_dev)]
+        self.route_seconds: list[float] = []
+        self.owned_points = [0] * self.n_dev
+
+    def route_shards(self, keys, ids):
+        """Route per-shard tensors: keys[s] and ids[s] (int64, on mesh[s])
+        are the span of shard s, in batch order or already sorted. Returns
+        ([(owned keys, owned ids) on mesh[d] for each d], the start-level
+        histogram on mesh[0])."""
+        if len(keys) != self.n_dev or len(ids) != self.n_dev:
+            raise ValueError(f"expected {self.n_dev} shards, got "
+                             f"{len(keys)} key and {len(ids)} id spans")
+        runs, hist = [], None
+        for k, i in zip(keys, ids):
+            k, order = torch.sort(k, stable=True)
+            i = i[order]
+            cells = _cells_at_level(k, self.level)
+            h = torch.bincount(cells, minlength=8 ** self.level)
+            hist = h if hist is None else hist + h.to(hist.device)
+            edges = torch.tensor(self._edges, dtype=torch.int64,
+                                 device=k.device)
+            cuts = [0, *torch.searchsorted(cells, edges).tolist(), k.numel()]
+            runs.append([(k[a:b], i[a:b]) for a, b in zip(cuts, cuts[1:])])
+        owned = []
+        for d, dev in enumerate(self.mesh):
+            k = torch.cat([r[d][0].to(dev) for r in runs])
+            i = torch.cat([r[d][1].to(dev) for r in runs])
+            k, order = torch.sort(k, stable=True)
+            owned.append((k, i[order]))
+        _synchronize(self.mesh)
+        return owned, hist
+
+    def route(self, keys_u64, ids):
+        """Route a host batch: returns ([(owned uint64 keys, owned int64
+        ids) per shard], the int64 start-level histogram), as numpy,
+        exactly partitioned by ownership block, sorted within each shard, no
+        point dropped."""
+        t0 = time.perf_counter()
+        keys = np.ascontiguousarray(keys_u64, dtype=np.uint64).view(np.int64)
+        ids = np.ascontiguousarray(ids, dtype=np.int64)
+        per = -(-keys.size // self.n_dev)
+        spans = [slice(min(d * per, keys.size), min((d + 1) * per, keys.size))
+                 for d in range(self.n_dev)]
+        owned, hist = self.route_shards(
+            [torch.from_numpy(keys[s]).to(dev)
+             for s, dev in zip(spans, self.mesh)],
+            [torch.from_numpy(ids[s]).to(dev)
+             for s, dev in zip(spans, self.mesh)])
+        out = [(k.cpu().numpy().view(np.uint64), i.cpu().numpy())
+               for k, i in owned]
+        self.route_seconds.append(time.perf_counter() - t0)
+        for d, (k, _) in enumerate(out):
+            self.owned_points[d] += k.size
+        return out, hist.cpu().numpy()

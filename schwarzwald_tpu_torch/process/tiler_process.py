@@ -130,6 +130,30 @@ def write_properties_json(output_directory: str, bounds: AABB,
         json.dump(doc, f, separators=(",", ":"))
 
 
+def device_stats(algorithm) -> dict:
+    """The device observability of a run: grid-sampler sweeps persisted and
+    sweeps whose range went to the host recursion at re-rooting depths;
+    under --multichip also the shards, the cards they run on, the points
+    each shard owned and the exchange's seconds per batch; under
+    --multihost the wall seconds of each step on this host."""
+    host_steps = getattr(algorithm, "seconds", None)
+    algorithm = getattr(algorithm, "inner", algorithm)  # multihost
+    stats = {
+        "device_sweeps_ok": getattr(algorithm, "device_sweeps_ok", 0),
+        "device_reroots": getattr(algorithm, "device_reroots", 0),
+    }
+    if host_steps is not None:
+        stats["multihost_s"] = dict(host_steps)
+    exchange = getattr(algorithm, "exchange", None)
+    if exchange is not None:
+        stats.update(
+            shards=exchange.n_dev,
+            cards=len({d for d in exchange.mesh if d.type == "cuda"}),
+            points_per_shard=list(exchange.owned_points),
+            exchange_s=list(exchange.route_seconds))
+    return stats
+
+
 class TilerProcess:
     def __init__(self, args: TilerArguments):
         self.args = args
@@ -253,29 +277,20 @@ class TilerProcess:
 
     # -- run ----------------------------------------------------------------
 
-    def _check_port_scope(self) -> str | None:
-        """Refuse, before touching the output, what the port does not do
-        yet (each names its ROADMAP item), and resolve --use-device."""
-        if self.args.multichip:
-            raise NotImplementedError(
-                "--multichip is not yet in the port: multi-device is "
-                "ROADMAP Queue 1 item 6")
-        if self.args.multihost_count > 1:
-            raise NotImplementedError(
-                "--multihost is not yet in the port: multihost is ROADMAP "
-                "Queue 1 item 7")
-        from ..ops.device import resolve_use_device
-        return resolve_use_device(self.args.use_device)
-
     def run(self) -> PerformanceStats:
+        from ..ops.device import resolve_use_device
         from ..util.config import configure
 
         prepare_start = time.perf_counter()
-        use_device = self._check_port_scope()
+        # resolved before the output is touched: cuda raises without a card
+        use_device = resolve_use_device(self.args.use_device)
 
         files = [p for p in self._expand_sources() if self._check_file(p)]
         if not files:
             raise RuntimeError("No point files to process")
+
+        multihost = self.args.multihost_count > 1
+        is_primary = not multihost or self.args.multihost_index == 0
 
         state_path = os.path.join(self.args.output_directory,
                                   "tiler_state.json")
@@ -284,9 +299,22 @@ class TilerProcess:
         # (io/staging.py), which can legitimately advance the checkpoint
         # when the previous run crashed mid-commit.
         resume_requested = self.args.resume and os.path.exists(state_path)
-        if not resume_requested:
+        if resume_requested:
+            if multihost:
+                raise RuntimeError("--resume is not supported with multihost")
+        elif is_primary:
             self._prepare_output_directory()
 
+        mh_coord = None
+        if multihost:
+            from ..parallel.multihost import MultiHostCoordinator
+            os.makedirs(self.args.output_directory, exist_ok=True)
+            # The coordinator constructor is itself the 'prepared'
+            # handshake: host 0 publishes a run nonce, others block on it
+            # and join the nonce-named exchange directory.
+            mh_coord = MultiHostCoordinator(self.args.output_directory,
+                                            self.args.multihost_index,
+                                            self.args.multihost_count)
         configure(self.args.output_directory, self.args.journal)
         if self.args.journal:
             # Chrome-trace of the read/index pipeline (the reference's
@@ -328,11 +356,16 @@ class TilerProcess:
             # for genuinely out-of-core runs (>= 3 batches): a single-
             # batch run writes every node exactly once anyway, so the
             # arena round-trip would be pure overhead (~0.3 s/1M
-            # measured).
+            # measured). Multi-host runs get a PER-HOST arena (owned
+            # subtrees are disjoint); every host publishes its arena via
+            # drain_and_discard before the subtree_done barrier so the
+            # distributed ancestor reconstruction reads real files
+            # (parallel/multihost.py).
             from ..io.packed_spill import PackedSpillStore
+            suffix = (f"_h{self.args.multihost_index}" if multihost else "")
             persistence = PackedSpillStore(persistence,
                                            self.args.output_directory,
-                                           dir_name=".spill")
+                                           dir_name=".spill" + suffix)
 
         resume_state = None
         if resume_requested:
@@ -370,7 +403,25 @@ class TilerProcess:
             concurrency=max(1, concurrency),
             use_device=use_device,
             cache_size_bytes=self.args.cache_size_bytes,
+            multichip=self.args.multichip,
         )
+
+        mh_plan = None
+        mh_algorithm = None
+        if mh_coord is not None:
+            from ..parallel.multihost import plan_multihost_tiling
+            files_with_counts = [
+                (path, count) for path, (count, _bounds)
+                in metadata.get_all_files_metadata().items()]
+            mh_plan = plan_multihost_tiling(
+                files_with_counts, metadata.total_bounds_tight(),
+                start_level=3,
+                process_index=self.args.multihost_index,
+                process_count=self.args.multihost_count)
+            files = mh_plan.local_files
+            log.info(f"Multi-host {mh_plan.process_index}/"
+                     f"{mh_plan.process_count}: {len(files)} local files, "
+                     f"owned node block {mh_plan.owned_node_range}")
 
         source = MultiReaderPointSource(files, self.args.errors_to_ignore)
         source.set_attributes(self.input_attributes)
@@ -431,14 +482,31 @@ class TilerProcess:
                 json.dump(state, f)
             return (tmp, state_path)
 
+        if mh_plan is not None:
+            from ..parallel.multihost import TilingAlgorithmMultiHost
+            if meta.tiling_strategy != TilingStrategy.Fast:
+                # the static Morton-block ownership requires FAST's fixed
+                # start level; silently running a different strategy than
+                # requested would be worse than refusing (the
+                # level_of_start_nodes setter raises for the same reason)
+                raise RuntimeError(
+                    f"--multihost requires the FAST tiling strategy "
+                    f"(got {meta.tiling_strategy.name}): octree ownership "
+                    f"is a fixed start-level Morton-block partition")
+            mh_algorithm = TilingAlgorithmMultiHost(
+                sampling_strategy, persistence, meta, mh_plan, mh_coord,
+                self.progress)
+
         tiler = Tiler(metadata, meta, sampling_strategy, self.progress,
                       source, persistence, self.input_attributes,
                       thread_config,
                       # single-batch runs skip checkpoint+staging: a crash
                       # restarts from scratch either way, and the staging
                       # renames cost one metadata op per node file
-                      checkpoint_callback=None if n_batches <= 1
+                      checkpoint_callback=None if (multihost
+                                                   or n_batches <= 1)
                       else checkpoint,
+                      algorithm=mh_algorithm,
                       checkpoint_interval_s=self.args.checkpoint_interval_s)
         # total dataset size for the FAST start-level estimator's cap
         # (see _estimate_start_node_level) — the metadata scan knows it
@@ -479,16 +547,17 @@ class TilerProcess:
                 num_processed = tiler.run()
         else:
             num_processed = tiler.run()
-        from ..util.trace import trace_span
-        with trace_span("sink_close_drain_index", "io"):
-            persistence.close()
-        # device observability: grid-sampler sweeps persisted, and sweeps
-        # whose range went to the host recursion at re-rooting depths
-        self.device_stats = {
-            "device_sweeps_ok": getattr(tiler.algorithm,
-                                        "device_sweeps_ok", 0),
-            "device_reroots": getattr(tiler.algorithm, "device_reroots", 0),
-        }
+        if is_primary:
+            # multihost: only host 0 writes the index artifacts (tileset
+            # forest / EPT hierarchy); the distributed finalize's last
+            # barrier already published every host's files, and the sinks
+            # reconcile the full node set from the shared output
+            # directory on close.
+            from ..util.trace import trace_span
+            with trace_span("sink_close_drain_index", "io"):
+                persistence.close()
+        self.device_stats = device_stats(tiler.algorithm)
+        log.info(f"Device stats: {self.device_stats}")
         indexing_end = time.perf_counter()
 
         stats = PerformanceStats(
@@ -502,12 +571,13 @@ class TilerProcess:
             tracer.write(os.path.join(global_config().journal_directory,
                                       "executor_trace.json"))
             JournalStore.global_store().flush_all()
-        write_properties_json(self.args.output_directory, cubic_bounds,
-                              self.args.spacing, stats)
-        if os.path.exists(state_path):
+        if is_primary:
+            write_properties_json(self.args.output_directory, cubic_bounds,
+                                  self.args.spacing, stats)
+        if is_primary and os.path.exists(state_path):
             os.remove(state_path)  # run completed; checkpoint obsolete
 
-        if self.args.output_format in (
+        if is_primary and self.args.output_format in (
                 OutputFormat.ENTWINE_LAS, OutputFormat.ENTWINE_LAZ):
             from ..io.entwine import (point_attributes_to_ept_schema,
                                       write_ept_json)
@@ -516,7 +586,9 @@ class TilerProcess:
                 bounds=cubic_bounds, conforming_bounds=cubic_bounds,
                 data_type=("laszip" if self.args.output_format
                            == OutputFormat.ENTWINE_LAZ else "las"),
-                points=num_processed,
+                # multihost: host 0 processed only its own files; ept.json
+                # describes the whole dataset
+                points=total_count if multihost else num_processed,
                 schema=point_attributes_to_ept_schema(self.output_attributes),
                 span=self.args.spacing)
 

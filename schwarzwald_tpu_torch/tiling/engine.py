@@ -431,19 +431,25 @@ class TilingAlgorithmBase:
     # -- device octree sweep (grid samplers) ----------------------------------
 
     def _device_select_levels(self, arena, sorted_keys, sorted_ids,
-                              root: NodeStructure, min_node_level: int = -1):
-        """Launch one level-synchronous sweep (ops/device_tiling) over a
-        Morton-sorted fresh range on meta.use_device. Returns the int8
-        levels (node_level + 2) as a tensor on that device, without copying
-        them back (see _materialize_levels). Every fault raises: there is
-        no host fallback for a failing device."""
+                              root: NodeStructure, min_node_level: int = -1,
+                              device=None, materialize: bool = True):
+        """One level-synchronous sweep (ops/device_tiling) over a
+        Morton-sorted fresh range on `device` (default meta.use_device; the
+        multi-device path runs one sweep per shard on that shard's device).
+        Returns the host levels of _materialize_levels, or with
+        materialize=False the int8 levels (node_level + 2) as a tensor on
+        the device, not yet copied back: torch launches are asynchronous,
+        so the caller can persist one range while the next one's sweep
+        runs, and then calls _materialize_levels. Every fault raises: there
+        is no host fallback for a failing device."""
         import torch
 
         from ..ops import device_tiling
         from ..util.trace import trace_span
 
         name = self.sampling_strategy.name
-        device = torch.device(self.meta.use_device)
+        device = torch.device(self.meta.use_device if device is None
+                              else device)
         root_ext_x = float(root.bounds.extent()[0])
         kwargs = {}
         if name in ("GRID_CENTER", "JITTERED"):
@@ -458,9 +464,10 @@ class TilingAlgorithmBase:
                                                root.max_depth)
         with trace_span("device_octree_sweep", "device"):
             key = device_tiling.keys_tensor(sorted_keys, device)
-            return device_tiling.octree_select_grid(
+            levels = device_tiling.octree_select_grid(
                 key, cands, self.meta.max_points_per_node, root.max_depth,
                 strategy=name, min_node_level=min_node_level, **kwargs)
+        return self._materialize_levels(levels) if materialize else levels
 
     def _materialize_levels(self, device_levels):
         """Copy a sweep's levels to the host. None when any point was left
@@ -885,8 +892,8 @@ class TilingAlgorithmAccurate(TilingAlgorithmBase):
         engine then tiles the batch."""
         if self.sampling_strategy.name not in GRID_SAMPLERS:
             return False
-        levels = self._materialize_levels(self._device_select_levels(
-            arena, sorted_keys, sorted_ids, root))
+        levels = self._device_select_levels(arena, sorted_keys, sorted_ids,
+                                            root)
         if levels is None:
             return False
         self._persist_device_assignment(arena, sorted_keys, sorted_ids,
@@ -1014,7 +1021,8 @@ class TilingAlgorithmFast(TilingAlgorithmBase):
             fk = np.concatenate([sn[1] for sn in group])
             fi = np.concatenate([sn[2] for sn in group])
             device_levels = self._device_select_levels(
-                arena, fk, fi, root, min_node_level=level - 1)
+                arena, fk, fi, root, min_node_level=level - 1,
+                materialize=False)
             flush(pending)  # persist g-1 while g finishes on the card
             pending = (self._materialize_levels(device_levels), fk, fi,
                        group)
@@ -1412,9 +1420,10 @@ def make_tiling_algorithm(strategy: TilingStrategy,
                           sampling_strategy: SamplingStrategy, persistence,
                           meta: TilerMetaParameters, progress_reporter=None):
     if meta.multichip > 0:
-        raise NotImplementedError(
-            "multichip tiling is not yet in the port: multi-device is "
-            "ROADMAP Queue 1 item 6")
+        from ..parallel.multidevice import TilingAlgorithmMultiDevice
+
+        return TilingAlgorithmMultiDevice(sampling_strategy, persistence,
+                                          meta, progress_reporter)
     cls = {TilingStrategy.Accurate: TilingAlgorithmAccurate,
            TilingStrategy.Fast: TilingAlgorithmFast,
            TilingStrategy.Adaptive: TilingAlgorithmAdaptive}[strategy]

@@ -351,3 +351,82 @@ def test_engine_grid_sweep_through_the_card_equals_host(cuda, tiling,
         np.testing.assert_array_equal(dev.retrieve_points(name).positions,
                                       host.retrieve_points(name).positions,
                                       err_msg=name)
+
+
+# -- the multi-device layer ------------------------------------------------------
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """4 shards on the card(s): K1 launched once per shard, the exchange
+    and the miniature tile checked inside."""
+    from schwarzwald_tpu_torch.entry import dryrun_multichip
+
+    morton_cuda.reset_counters()
+    dryrun_multichip(4)
+    assert morton_cuda.snapshot()["launches"] == 4
+
+
+def test_exchange_on_the_card_equals_cpu(cuda):
+    from schwarzwald_tpu_torch.parallel.multidevice import make_mesh
+
+    rng = np.random.default_rng(14)
+    base = rng.uniform(0.0, EXTENT, (500, 3))
+    pos = np.concatenate([rng.uniform(0.0, EXTENT, (30_000, 3)),
+                          base[rng.integers(0, 500, 20_000)]])
+    keys, _ = indexing.index_points(pos, np.zeros(3), np.full(3, EXTENT))
+    ids = np.arange(keys.size, dtype=np.int64)
+    mesh = make_mesh(4, "cuda")
+    assert all(d.type == "cuda" for d in mesh)
+    got, got_hist = device.ShardedExchange(mesh, level=3).route(keys, ids)
+    want, want_hist = device.ShardedExchange(
+        make_mesh(4, "cpu"), level=3).route(keys, ids)
+    for (gk, gi), (wk, wi) in zip(got, want):
+        np.testing.assert_array_equal(gk, wk)
+        np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(got_hist, want_hist)
+
+
+@pytest.mark.parametrize("sampler", ["RANDOM_GRID", "MIN_DISTANCE"])
+def test_multidevice_engine_on_the_card_equals_host(cuda, sampler):
+    """TilingAlgorithmMultiDevice over 4 shards on the card against the
+    single-device FAST host run at start level 3: grid samplers sweep per
+    owner on the card, MIN_DISTANCE ranges go through K2."""
+    from schwarzwald_tpu_torch.parallel.multidevice import (
+        TilingAlgorithmMultiDevice, make_mesh)
+
+    rng = np.random.default_rng(15)
+    batches = [rng.uniform(0.0, EXTENT / 2, (5000, 3)),
+               rng.uniform(0.0, EXTENT, (20_000, 3))]
+    bounds = AABB([0.0] * 3, [EXTENT] * 3)
+
+    def run(use_device, multi):
+        persistence = MemoryPersistence()
+        meta = TilerMetaParameters(spacing_at_root=1.0,
+                                   max_points_per_node=300, concurrency=4,
+                                   use_device=use_device)
+        if multi:
+            algo = TilingAlgorithmMultiDevice(
+                SamplingStrategy(sampler, 300), persistence, meta,
+                mesh=make_mesh(4, use_device), ownership_level=3)
+        else:
+            algo = make_tiling_algorithm(TilingStrategy.Fast,
+                                         SamplingStrategy(sampler, 300),
+                                         persistence, meta)
+            algo.level_of_start_nodes = 3
+        for pos in batches:
+            algo.process_batch(PointBuffer(pos.copy()), bounds)
+        algo.finalize(bounds)
+        return algo, persistence
+
+    _, host = run(None, False)
+    before = poisson_cuda.snapshot()
+    algo, dev = run("cuda", True)
+    after = poisson_cuda.snapshot()
+    if sampler == "MIN_DISTANCE":
+        assert after["launches"] > before["launches"]
+    else:
+        assert algo.device_sweeps_ok >= 4 and algo.device_reroots == 0
+    assert set(host.node_names()) == set(dev.node_names())
+    for name in host.node_names():
+        np.testing.assert_array_equal(dev.retrieve_points(name).positions,
+                                      host.retrieve_points(name).positions,
+                                      err_msg=name)

@@ -29,6 +29,9 @@ def _port_sources():
     ("schwarzwald_tpu_torch.process.tiler_process",
      "schwarzwald_tpu_torch.ops.device_poisson",
      "schwarzwald_tpu_torch.io.persistence"),
+    ("schwarzwald_tpu_torch.parallel.multidevice",
+     "schwarzwald_tpu_torch.parallel.multihost",
+     "schwarzwald_tpu_torch.entry"),
 ])
 def test_import_pulls_in_no_jax(modules):
     code = ("import sys\n"

@@ -54,7 +54,7 @@ def assert_same_tree(a, b):
     assert sorted(ta) == sorted(tb)
     for rel in ta:
         assert ta[rel] == tb[rel], rel
-    assert any(rel.endswith(".pnts") or rel.endswith(".bin") for rel in ta)
+    assert any(rel.endswith((".pnts", ".bin", ".las")) for rel in ta)
 
 
 # -- engine: node for node ---------------------------------------------------
@@ -213,15 +213,19 @@ def test_cli_refuses_auto(tmp_path, capsys):
     assert "invalid choice: 'auto'" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--multichip", "2"], "item 6"),
-    (["--multihost", "0", "2"], "item 7"),
-])
-def test_port_refuses_what_is_not_ported(tmp_path, argv, match):
+# the cases keep the ids they had when the port refused --multichip and
+# --multihost as not ported yet (ROADMAP items 6 and 7)
+@pytest.mark.parametrize("argv", [["--multichip", "2"],
+                                  ["--multihost", "0", "2"]],
+                         ids=["argv0-item 6", "argv1-item 7"])
+def test_port_refuses_what_is_not_ported(tmp_path, argv):
+    """--multichip and --multihost run on the card by default: without one
+    they raise before the output directory exists, and put no shard on the
+    CPU."""
     src = tmp_path / "in.las"
     write_las(src, 1000, 4)
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         cli("schwarzwald_tpu_torch",
             ["--tiler", "-i", str(src), "-o", str(out)] + argv)
     assert not out.exists()
