@@ -54,7 +54,16 @@ each phase prints its seconds:
      processes (--multihost 0 2 and 1 2) sharing the card, and again on the
      host: the two trees byte-identical, .mh-exchange/ gone, every point
      once at and below the start level;
-  7. the summary: one JSON line for the kernels (with each kernel's
+  7. the other sinks and the converter: phase 3's 10M uniform cloud tiled
+     into ENTWINE_LAZ (MIN_DISTANCE, K2) and phase 5's 1M clustered cloud
+     into BIN, BINZ, LAS, LAZ and ENTWINE_LAS (RANDOM_GRID, the sweep),
+     each on the card and on the host, byte for byte (properties.json up
+     to its two timing fields; ept.json, the EPT hierarchy and the LAS
+     headers hold no clock field); then convert() on the card runs' trees
+     and on the host runs' trees, byte for byte: the ENTWINE_LAZ tree to
+     3D Tiles, phase 3's 3D Tiles tree to LAZ and to LAS at --max-depth 4,
+     with each conversion's points per second;
+  8. the summary: one JSON line for the kernels (with each kernel's
      launches on every path that ran it), then the result line.
 
 The last line of standard output is
@@ -575,8 +584,7 @@ def phase_min_distance(work: str, report: dict, card: str) -> None:
     print(f"main path: {n_files} files byte-identical (cuda vs host), "
           f"{n_points} points in the tiles; cuda/host rate "
           f"{rates['cuda'] / rates['host']:.3f}", flush=True)
-    shutil.rmtree(work)
-    os.makedirs(work)
+    # cloud.las, out_cuda and out_host stay for phases 6 and 7
 
 
 # -- phase 4: the batch step -------------------------------------------------------
@@ -871,9 +879,9 @@ def phase_multichip(work: str, k1: dict, k2: dict, card: str) -> None:
         raise RuntimeError(f"dryrun_multichip({SHARDS}) launched K1 "
                            f"{launches} times, not once per shard")
 
-    # MIN_DISTANCE, 10M uniform: the exchange, then K2 per range
+    # MIN_DISTANCE, 10M uniform (phase 3's cloud): the exchange, then K2
+    # per range
     src = os.path.join(work, "cloud.las")
-    write_uniform_las(src, MAIN_PATH_POINTS)
     for label, options in (("multichip", {"multichip": SHARDS}),
                            ("single", {"fixed_start_level": START_LEVEL})):
         poisson_cuda.trace = []
@@ -915,7 +923,6 @@ def phase_multichip(work: str, k1: dict, k2: dict, card: str) -> None:
         shutil.rmtree(os.path.join(work, f"md_{label}"))
 
     # two hosts: the same cloud as two 5M files, one per host
-    os.remove(src)
     pos = np.random.default_rng(7).uniform(1.0, 999.0, (MAIN_PATH_POINTS, 3))
     half = MAIN_PATH_POINTS // 2
     parts = []
@@ -951,9 +958,9 @@ def phase_multichip(work: str, k1: dict, k2: dict, card: str) -> None:
         path = os.path.join(work, name)
         shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
 
-    # RANDOM_GRID, 10M clustered: one sweep per owner, on the owner's device
-    src = os.path.join(work, "clustered.las")
-    write_clustered_las(src, MAIN_PATH_POINTS, 17)
+    # RANDOM_GRID, 10M clustered (phase 5's cloud): one sweep per owner,
+    # on the owner's device
+    src = os.path.join(work, f"clustered_{MAIN_PATH_POINTS}.las")
     sweeps = []
     select = device_tiling.octree_select_grid
 
@@ -991,8 +998,122 @@ def phase_multichip(work: str, k1: dict, k2: dict, card: str) -> None:
     print(f"multichip RANDOM_GRID: {n_files} files byte-identical "
           f"({SHARDS} shards vs one card at start level {START_LEVEL})",
           flush=True)
-    shutil.rmtree(work)
-    os.makedirs(work)
+    for label in ("multichip", "single"):
+        shutil.rmtree(os.path.join(work, f"rg_{label}"))
+
+
+# -- phase 7: the other sinks and the converter --------------------------------
+
+SINK_FORMATS = ("BIN", "BINZ", "LAS", "LAZ", "ENTWINE_LAS")
+CONVERT_DEPTH = 4  # --max-depth of the 3D Tiles tree's LAS / LAZ conversions
+
+
+def converted_points(root: str) -> int:
+    """Points of a converted tree: its .pnts tiles' counts (positions
+    checked finite) and its LAS / LAZ files' header counts."""
+    from schwarzwald_tpu_torch.io import las
+
+    total = count_points(root)
+    for rel, full in tree_files(root).items():
+        if rel.endswith((".las", ".laz")):
+            total += las.LASFile(full).count
+    return total
+
+
+def phase_sinks_and_converter(work: str, k2: dict, card: str) -> None:
+    """ENTWINE_LAZ at 10M with K2, the five other formats at 1M under
+    RANDOM_GRID, each on the card and on the host, byte for byte; then the
+    converter on the card runs' trees against the host runs' trees."""
+    import schwarzwald_tpu_torch as sz
+    from schwarzwald_tpu_torch.core.attributes import OutputFormat
+    from schwarzwald_tpu_torch.ops import poisson_cuda
+
+    # ENTWINE_LAZ, MIN_DISTANCE (the default), phase 3's 10M uniform cloud
+    src = os.path.join(work, "cloud.las")
+    walls = {}
+    for mode in ("cuda", "host"):
+        poisson_cuda.reset_counters()
+        try:
+            proc, walls[mode] = tile_once(
+                src, os.path.join(work, f"ept_{mode}"), use_device=mode,
+                output_format=OutputFormat.ENTWINE_LAZ)
+        finally:
+            counts = poisson_cuda.snapshot()
+        print(f"sinks ENTWINE_LAZ MIN_DISTANCE {mode}: {walls[mode]:.2f} s, "
+              f"{MAIN_PATH_POINTS / walls[mode]:.0f} points/s on {card}; K2 "
+              f"counters {counts}", flush=True)
+        if mode == "cuda":
+            k2["launches_by_path"]["7 ENTWINE_LAZ MIN_DISTANCE"] = \
+                counts["launches"]
+            if counts["launches"] <= 0:
+                raise RuntimeError("the ENTWINE_LAZ cuda run launched no K2")
+        elif counts["launches"]:
+            raise RuntimeError("the ENTWINE_LAZ host run launched K2")
+    n_files = compare_trees(os.path.join(work, "ept_cuda"),
+                            os.path.join(work, "ept_host"))
+    with open(os.path.join(work, "ept_cuda", "ept.json")) as f:
+        ept_points = json.load(f)["points"]
+    if ept_points != MAIN_PATH_POINTS:
+        raise RuntimeError(f"ept.json counts {ept_points} points")
+    print(f"sinks ENTWINE_LAZ: {n_files} files byte-identical (cuda vs host; "
+          f"properties.json up to its two timing fields); cuda/host rate "
+          f"{walls['host'] / walls['cuda']:.3f}", flush=True)
+
+    # BIN, BINZ, LAS, LAZ, ENTWINE_LAS under RANDOM_GRID, phase 5's 1M
+    # clustered cloud: the octree sweep
+    src = os.path.join(work, f"clustered_{GRID_SMALL_POINTS}.las")
+    for fmt in SINK_FORMATS:
+        walls = {}
+        for mode in ("cuda", "host"):
+            proc, walls[mode] = tile_once(
+                src, os.path.join(work, f"{fmt}_{mode}"), use_device=mode,
+                sampling_strategy="RANDOM_GRID",
+                output_format=OutputFormat(fmt))
+            sweeps = proc.device_stats["device_sweeps_ok"]
+            if (sweeps > 0) != (mode == "cuda"):
+                raise RuntimeError(f"{fmt} {mode}: {sweeps} device sweeps")
+        n_files = compare_trees(os.path.join(work, f"{fmt}_cuda"),
+                                os.path.join(work, f"{fmt}_host"))
+        print(f"sinks {fmt} RANDOM_GRID: cuda {walls['cuda']:.2f} s, host "
+              f"{walls['host']:.2f} s, cuda/host rate "
+              f"{walls['host'] / walls['cuda']:.3f} on {card}; {n_files} "
+              f"files byte-identical", flush=True)
+        for mode in ("cuda", "host"):
+            shutil.rmtree(os.path.join(work, f"{fmt}_{mode}"))
+
+    # the converter on the 10M trees: each conversion of a card run's tree
+    # equals the same conversion of the host run's tree
+    for source, target, options in (
+            ("ept", "3DTILES", {}),
+            ("out", "LAZ", {"max_depth": CONVERT_DEPTH}),
+            ("out", "LAS", {"max_depth": CONVERT_DEPTH})):
+        points = {}
+        for mode in ("cuda", "host"):
+            out = os.path.join(work, f"conv_{mode}")
+            t0 = time.perf_counter()
+            sz.convert(os.path.join(work, f"{source}_{mode}"), out,
+                       output_format=target, **options)
+            seconds = time.perf_counter() - t0
+            points[mode] = converted_points(out)
+            print(f"converter {source}_{mode} -> {target} {options}: "
+                  f"{points[mode]} points in {seconds:.2f} s, "
+                  f"{points[mode] / seconds:.0f} points/s", flush=True)
+        n_files = compare_trees(os.path.join(work, "conv_cuda"),
+                                os.path.join(work, "conv_host"))
+        depths = {len(os.path.splitext(f)[0]) - 1
+                  for f in os.listdir(os.path.join(work, "conv_cuda"))
+                  if f.endswith((".pnts", ".las", ".laz"))}
+        print(f"converter {source} -> {target}: {n_files} files "
+              f"byte-identical (cuda trees vs host trees), node levels "
+              f"{sorted(depths)}", flush=True)
+        if points["cuda"] < (MAIN_PATH_POINTS if source == "ept" else 1):
+            raise RuntimeError(f"{source} -> {target}: {points['cuda']} "
+                               f"points converted")
+        if options and max(depths) > CONVERT_DEPTH:
+            raise RuntimeError(f"{source} -> {target}: a node below level "
+                               f"{CONVERT_DEPTH}")
+        for mode in ("cuda", "host"):
+            shutil.rmtree(os.path.join(work, f"conv_{mode}"))
 
 
 # -- main --------------------------------------------------------------------------
@@ -1054,6 +1175,8 @@ def main() -> int:
         timed_phase("5 grid samplers", phase_grid_samplers, work, smi)
         timed_phase("6 multichip and multihost", phase_multichip, work, k1,
                     k2, smi)
+        timed_phase("7 other sinks and the converter",
+                    phase_sinks_and_converter, work, k2, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -8,13 +8,17 @@ MIN_DISTANCE Poisson-disk accept mask of every large node range runs on
 hand-written CUDA kernels (csrc/poisson.cu, ops/poisson_cuda.py), and the
 grid samplers' fresh octree assignment is a level-synchronous sweep in
 torch ops (ops/device_tiling.py). `--use-device host` is the native host
-run, `--use-device cpu` the kernels' plain-torch versions. The batch step (ops/device.py, entry.py) runs the
-Morton interleave as a hand-written CUDA kernel (csrc/morton.cu,
+run, `--use-device cpu` the kernels' plain-torch versions. The batch step
+(ops/device.py, entry.py; on the card by default) runs the Morton
+interleave as a hand-written CUDA kernel (csrc/morton.cu,
 ops/morton_cuda.py). `--multichip N` shards each batch over N devices
 through a lossless exchange (ops/device.py ShardedExchange, on the cards,
 N shards on fewer cards when need be); `--multihost i n` splits the files
 and the octree over hosts that share the output directory
-(parallel/multihost.py). Output is byte-identical to the host run.
+(parallel/multihost.py). Output is byte-identical to the host run, in
+every output format (3D Tiles, BIN, BINZ, LAS, LAZ, ENTWINE_LAS,
+ENTWINE_LAZ). `convert()` and `--converter` convert a tiled octree to 3D
+Tiles, LAS or LAZ (process/converter.py), host work as in the JAX package.
 
 Reference parity targets (cited throughout as reference file:line):
   - Octree structure & per-node point selection semantics:
@@ -93,9 +97,11 @@ def tile(sources, output_directory, **options):
 
 def convert(source_folder, output_folder, output_format="3DTILES", **options):
     """High-level converter entry point (CLI --converter mode)."""
-    raise NotImplementedError(
-        "convert() is not yet in the port: process/converter.py is "
-        "ROADMAP Queue 1 item 8")
+    from .process.converter import ConverterArguments, run_conversion
+
+    run_conversion(ConverterArguments(
+        source_folder=source_folder, output_folder=output_folder,
+        output_format=output_format, **options))
 
 
 def __getattr__(name):

@@ -150,9 +150,16 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     if args.converter:
-        raise NotImplementedError(
-            "--converter is not yet in the port: process/converter.py is "
-            "ROADMAP Queue 1 item 8")
+        from .process.converter import ConverterArguments, run_conversion
+        conv = ConverterArguments(
+            source_folder=args.source[0] if args.source else ".",
+            output_folder=args.outdir,
+            output_format=args.output_format,
+            source_projection=args.source_projection,
+            max_depth=args.max_depth,
+            delete_source=args.delete_source)
+        run_conversion(conv)
+        return 0
 
     if not args.tiler:
         log.write_log("Specify one of --tiler or --converter")

@@ -541,4 +541,16 @@ int poisson_decide(int64_t n, int32_t b0, int32_t b1, const int64_t* offsets,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A stream of the caller's own on the current device, outside PyTorch's
+// pool (32 streams per device, shared once more threads ask): one per
+// sending thread however many threads send ranges. Non-blocking, so it
+// never waits on the legacy default stream. Returns the CUDA error (0 =
+// made); the handle goes to *stream.
+int poisson_stream_create(void** stream) {
+  cudaStream_t s = nullptr;
+  cudaError_t err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  *stream = s;
+  return static_cast<int>(err);
+}
+
 }  // extern "C"

@@ -4,7 +4,7 @@ stable key sort with the point index as payload, start-level histogram) and
 the complete level-synchronous octree selection under RANDOM_GRID, over
 65,536 random 21-bit grid coordinates.
 
-    fn, args = entry("cuda")
+    fn, args = entry()       # on the card; entry("cpu") on the CPU
     batch, levels = fn(*args)
 
 `dryrun_multichip(n)` is the counterpart of the JAX package's
@@ -31,10 +31,14 @@ DRYRUN_POINTS_PER_SHARD = 256
 DRYRUN_TILE_POINTS = 10_000
 
 
-def entry(device_name: str = "cpu"):
+def entry(device_name: str = "cuda"):
     """(fn, (x, y, z)): fn runs the step on the inputs' device and returns
     (SortedBatch, int8 levels). The inputs are int32 tensors on
-    `device_name`, drawn as the JAX entry draws them."""
+    `device_name`, drawn as the JAX entry draws them. The card by default,
+    as the JAX entry runs on the default accelerator; raises without one
+    (`entry("cpu")` for the CPU)."""
+    if torch.device(device_name).type == "cuda":
+        device.resolve_use_device("cuda")
     rng = np.random.default_rng(0)
     x, y, z = (torch.from_numpy(
         rng.integers(0, 1 << 21, N_POINTS).astype(np.int32)).to(device_name)

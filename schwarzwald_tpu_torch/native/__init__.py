@@ -3,7 +3,7 @@
 The reference implements its whole runtime in C++; here the host-side hot
 loops that cannot be vectorized (greedy Poisson-disk acceptance, LAS point
 record transcoding) are C++ with numpy-fallback twins. The library is
-compiled from schwarzwald_tpu/native/src automatically on first use when a
+compiled from this package's native/src automatically on first use when a
 compiler is available (see loader.py).
 """
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """ctypes loader for the native kernels, with on-demand compilation.
 
-The C++ sources are the JAX package's own (schwarzwald_tpu/native/src),
-compiled here by file path so both packages run one codec and one set of
-host kernels, byte for byte; this package never imports that one. The
-library builds into this package's native/build/.
+The C++ sources in native/src are this package's own copy of the JAX
+package's host kernels and LAZ codec (unchanged), so the port builds and
+runs without that package's tree; the tests hold the two packages' codec
+bytes and host-kernel results equal. The library builds into this
+package's native/build/.
 """
 from __future__ import annotations
 
@@ -16,9 +17,7 @@ import threading
 
 import numpy as np
 
-_SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "schwarzwald_tpu",
-    "native", "src")
+_SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 _SRCS = [os.path.join(_SRC_DIR, "schwarzwald_native.cpp"),
          os.path.join(_SRC_DIR, "laz.cpp")]
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")

@@ -117,11 +117,26 @@ def _sort_and_count(keys: torch.Tensor, level: int) -> SortedBatch:
     return SortedBatch(keys, order, hist)
 
 
+def _step_device(a, device) -> torch.device:
+    """Where the batch step runs: `device` when given, else the input
+    tensor's own device, else (numpy input) the card, as the JAX functions
+    run where their inputs are, on the default accelerator. A CUDA device
+    raises without a card, as `resolve_use_device("cuda")` does."""
+    if device is None:
+        device = a.device if isinstance(a, torch.Tensor) else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        resolve_use_device("cuda")
+    return device
+
+
 def encode_sort_batch(positions, bounds_min, bounds_extent, level: int = 3,
-                      device="cpu") -> SortedBatch:
+                      device=None) -> SortedBatch:
     """The device batch step from float64 positions: clamp + normalize +
-    interleave + stable sort + histogram, on `device`. Bit-exact against
-    the host encode on any device with true float64."""
+    interleave + stable sort + histogram, on `device` (None: the positions'
+    tensor's device, the card for numpy input). Bit-exact against the host
+    encode on any device with true float64."""
+    device = _step_device(positions, device)
     if not isinstance(positions, torch.Tensor):
         positions = torch.from_numpy(np.ascontiguousarray(positions,
                                                           dtype=np.float64))
@@ -129,9 +144,11 @@ def encode_sort_batch(positions, bounds_min, bounds_extent, level: int = 3,
     return _sort_and_count(keys, level)
 
 
-def encode_sort_grid(x, y, z, level: int = 3, device="cpu") -> SortedBatch:
+def encode_sort_grid(x, y, z, level: int = 3, device=None) -> SortedBatch:
     """The batch step from 21-bit grid coordinates (host-normalized):
-    interleave + stable sort + start-level histogram, all integer."""
+    interleave + stable sort + start-level histogram, all integer, on
+    `device` (None: x's tensor's device, the card for numpy input)."""
+    device = _step_device(x, device)
     keys = interleave(_coords(x, device), _coords(y, device),
                       _coords(z, device))
     return _sort_and_count(keys, level)

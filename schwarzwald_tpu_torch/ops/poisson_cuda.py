@@ -479,18 +479,44 @@ def phase_ms(stats: dict) -> dict:
 _tls = threading.local()
 
 
-def thread_stream(device: torch.device | str) -> torch.cuda.Stream:
-    """The calling thread's CUDA stream on `device`: taken from PyTorch's
-    stream pool (32 per device, handed out in turn) at the thread's first
-    call and kept for its later calls, so that ranges sent from several
-    worker threads run on the card at once. `cuda` with no index means the
-    current device."""
+def own_stream(device: torch.device) -> torch.cuda.ExternalStream:
+    """A CUDA stream on `device` made outside PyTorch's pool
+    (`poisson_stream_create` in csrc/poisson.cu, non-blocking). The pool
+    hands out 32 streams per device in turn, so past 32 sending threads it
+    would give two threads one stream; each call here makes a new one.
+
+    The stream lives for the process: it is never destroyed, so its handle
+    is never handed to another thread, and a trace that names a range's
+    stream by its handle names one thread's stream. The engine starts
+    about two sending threads per core and run; a CUDA stream is a small
+    object."""
+    from ._cuda_build import load_kernel_library
+
+    lib = load_kernel_library("poisson")
+    lib.poisson_stream_create.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+    handle = ctypes.c_void_p()
+    with torch.cuda.device(device):
+        err = lib.poisson_stream_create(ctypes.byref(handle))
+    if err != 0:
+        raise RuntimeError(f"poisson_stream_create failed on {device}: "
+                           f"CUDA error {err}")
+    return torch.cuda.ExternalStream(handle.value, device=device)
+
+
+def thread_stream(device: torch.device | str) -> torch.cuda.ExternalStream:
+    """The calling thread's CUDA stream on `device`: one `own_stream` made
+    at the thread's first call and kept for its later calls, so that ranges
+    sent from several worker threads run on the card at once, each thread
+    on a stream no other thread has. `cuda` with no index means the current
+    device."""
     device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"thread_stream needs a CUDA device, got {device}")
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
     stream = getattr(_tls, "stream", None)
     if stream is None or stream.device != device:
-        stream = _tls.stream = torch.cuda.Stream(device)
+        stream = _tls.stream = own_stream(device)
     return stream
 
 

@@ -112,7 +112,7 @@ def test_encode_sort_grid_equals_jax(on_cpu, level):
     gx, gy, gz = (a.astype(np.uint32) for a in (gx, gy, gz))
     want = jax_device.encode_sort_grid(jnp.asarray(gx), jnp.asarray(gy),
                                        jnp.asarray(gz), level=level)
-    got = device.encode_sort_grid(gx, gy, gz, level=level)
+    got = device.encode_sort_grid(gx, gy, gz, level=level, device="cpu")
     hi, lo = device.keys_to_hi_lo(got.keys)
     np.testing.assert_array_equal(hi, np.asarray(want.key_hi))
     np.testing.assert_array_equal(lo, np.asarray(want.key_lo))
@@ -146,7 +146,8 @@ def test_encode_sort_batch_equals_jax_and_host(on_cpu):
     pos = np.concatenate([EDGES, rng.uniform(BMIN, BMAX, (4092, 3))])
     want = jax_device.encode_sort_batch(jnp.asarray(pos), jnp.asarray(BMIN),
                                         jnp.asarray(BMAX - BMIN), level=3)
-    got = device.encode_sort_batch(pos, BMIN, BMAX - BMIN, level=3)
+    got = device.encode_sort_batch(pos, BMIN, BMAX - BMIN, level=3,
+                                   device="cpu")
     hi, lo = device.keys_to_hi_lo(got.keys)
     np.testing.assert_array_equal(hi, np.asarray(want.key_hi))
     np.testing.assert_array_equal(lo, np.asarray(want.key_lo))
@@ -176,6 +177,52 @@ def test_encode_points_edges_equal_jax(on_cpu):
     np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
     want, _ = indexing.index_points(EDGES.copy(), BMIN, BMAX)
     np.testing.assert_array_equal(keys.numpy().view(np.uint64), want)
+
+
+def grid_step(inputs):
+    return device.encode_sort_grid(*inputs[:3], level=3, device=inputs[3])
+
+
+def batch_step(inputs):
+    return device.encode_sort_batch(inputs[0], BMIN, BMAX - BMIN, level=3,
+                                    device=inputs[1])
+
+
+STEPS = {"encode_sort_grid": (grid_step, lambda pos: host_grid_coords(pos)[1]),
+         "encode_sort_batch": (batch_step, lambda pos: (pos,))}
+
+
+@pytest.mark.parametrize("step", sorted(STEPS))
+def test_batch_step_defaults_to_the_card(step):
+    """numpy input under device=None means the card, as the JAX functions
+    run on the default accelerator: without a card it raises, naming the
+    host and the CPU, and launches nothing."""
+    assert not torch.cuda.is_available()
+    fn, inputs = STEPS[step]
+    pos = np.random.default_rng(8).uniform(BMIN, BMAX, (1000, 3))
+    morton_cuda.reset_counters()
+    with pytest.raises(RuntimeError, match="no CUDA card") as err:
+        fn((*inputs(pos), None))
+    assert "host" in str(err.value) and "cpu" in str(err.value)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        fn((*inputs(pos), "cuda"))
+    assert morton_cuda.snapshot()["launches"] == 0
+
+
+@pytest.mark.parametrize("step", sorted(STEPS))
+def test_batch_step_keeps_a_cpu_tensor_on_the_cpu(step):
+    """A CPU tensor under device=None stays on the CPU (its own device) and
+    gives what device="cpu" gives."""
+    fn, inputs = STEPS[step]
+    pos = np.random.default_rng(9).uniform(BMIN, BMAX, (3000, 3))
+    tensors = [torch.from_numpy(np.asarray(a).view(np.int32)
+                                if np.asarray(a).dtype == np.uint32
+                                else np.asarray(a)) for a in inputs(pos)]
+    got = fn((*tensors, None))
+    want = fn((*inputs(pos), "cpu"))
+    for g, w in zip(got, want):
+        assert g.device.type == "cpu"
+        assert torch.equal(g, w)
 
 
 # -- the flagship step -----------------------------------------------------------
@@ -209,3 +256,17 @@ def test_entry_equals_graft_entry(on_cpu):
     assert levels.dtype == torch.int8
     np.testing.assert_array_equal(levels.numpy(), np.asarray(jax_levels))
     assert (levels.numpy() > 0).all()
+
+
+def test_entry_defaults_to_the_card():
+    """entry() with no argument runs on the card, as the JAX entry runs on
+    the default accelerator: without one it raises, naming the host and the
+    CPU."""
+    from schwarzwald_tpu_torch.entry import entry
+
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="no CUDA card") as err:
+        entry()
+    assert "host" in str(err.value) and "cpu" in str(err.value)
+    x, y, z = entry("cpu")[1]
+    assert x.device.type == y.device.type == z.device.type == "cpu"

@@ -172,6 +172,43 @@ def test_ranges_from_threads_at_once_equal_a_serial_run(cuda):
         np.testing.assert_array_equal(got, host)
 
 
+def test_forty_threads_get_forty_streams(cuda):
+    """40 threads alive at once each get a stream of their own, outside
+    PyTorch's pool (32 streams per device, which would have to repeat one),
+    and each sends a range on it: the masks are the native host kernel's,
+    and every record names its thread's stream."""
+    import threading
+
+    pos = sorted_uniform(6000, 30)
+    want = native.poisson_sample_kernel()(pos, np.zeros(3),
+                                          np.full(3, EXTENT), 1.5, None)
+    streams, masks, ready = {}, {}, threading.Barrier(40)
+
+    def send(k):
+        streams[k] = poisson_cuda.thread_stream("cuda").cuda_stream
+        masks[k] = poisson_cuda.range_mask_cuda(pos, 1.5)
+        assert poisson_cuda.thread_stream(cuda).cuda_stream == streams[k]
+        ready.wait(timeout=120)  # no thread ends before all have a stream
+
+    poisson_cuda.trace = []
+    try:
+        threads = [threading.Thread(target=send, args=(k,), name=f"s{k}")
+                   for k in range(40)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        records = poisson_cuda.trace
+    finally:
+        poisson_cuda.trace = None
+    assert len(streams) == 40 and len(set(streams.values())) == 40
+    assert {r["thread"]: r["stream"] for r in records} == {
+        f"s{k}": s for k, s in streams.items()}
+    for k in range(40):
+        np.testing.assert_array_equal(masks[k], want)
+
+
 def test_wrapper_checks_its_inputs(cuda):
     p = poisson_cuda.prep(sorted_uniform(4096, 7), 2.0)
     planes, ana, ptr, bj = on_card(p, cuda)

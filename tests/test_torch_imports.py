@@ -31,7 +31,8 @@ def _port_sources():
      "schwarzwald_tpu_torch.io.persistence"),
     ("schwarzwald_tpu_torch.parallel.multidevice",
      "schwarzwald_tpu_torch.parallel.multihost",
-     "schwarzwald_tpu_torch.entry"),
+     "schwarzwald_tpu_torch.entry",
+     "schwarzwald_tpu_torch.process.converter"),
 ])
 def test_import_pulls_in_no_jax(modules):
     code = ("import sys\n"
@@ -67,6 +68,62 @@ def test_source_scan_pattern_catches_imports():
     assert not _FORBIDDEN.match("import schwarzwald_tpu_torch as sz")
     assert not _FORBIDDEN.match("from schwarzwald_tpu_torch.ops import x")
     assert not _FORBIDDEN.match("import jaxtyping")
+
+
+# a path component naming the JAX package's tree (not schwarzwald_tpu_torch)
+_JAX_TREE = re.compile(r"(?:^|[/\\])schwarzwald_tpu(?:$|[/\\])")
+
+
+def _jax_tree_paths(source: str) -> list:
+    """Line numbers where `source` builds a path into the JAX package's
+    tree: a string naming it passed to a call (os.path.join, open, Path,
+    subprocess) or joined with `/` (pathlib). Docstrings, comments and data
+    that only name a reference file are not paths built."""
+    import ast
+
+    def names_tree(node):
+        return (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and _JAX_TREE.search(node.value))
+
+    lines = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Call):
+            args = [*node.args, *(k.value for k in node.keywords)]
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            args = [node.left, node.right]
+        else:
+            continue
+        lines += [a.lineno for a in args if names_tree(a)]
+    return sorted(lines)
+
+
+def test_source_scan_finds_no_path_into_the_jax_tree():
+    """The port builds and reads nothing under schwarzwald_tpu/ (its native
+    C++ is its own copy in native/src)."""
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            offenders += [f"{os.path.relpath(path, ROOT)}:{no}"
+                          for no in _jax_tree_paths(f.read())]
+    assert not offenders, offenders
+
+
+def test_path_scan_catches_paths_into_the_jax_tree():
+    """The path scan itself: the loader's old source directory, a path
+    literal and a pathlib join are caught; the `replaces` label of a
+    kernel, a docstring and the port's own tree are not."""
+    old_loader = ('_SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(\n'
+                  '    os.path.dirname(os.path.abspath(__file__)))), '
+                  '"schwarzwald_tpu",\n    "native", "src")\n')
+    assert _jax_tree_paths(old_loader) == [2]
+    assert _jax_tree_paths('open("schwarzwald_tpu/native/src/laz.cpp")\n')
+    assert _jax_tree_paths('p = ROOT / "schwarzwald_tpu" / "native"\n')
+    assert not _jax_tree_paths(
+        '"""Replaces schwarzwald_tpu/ops/device.py:217."""\n'
+        'k = {"replaces": "schwarzwald_tpu/ops/poisson_pallas.py:135"}\n'
+        'os.path.join(ROOT, "schwarzwald_tpu_torch", "native", "src")\n')
+    with open(os.path.join(PORT, "native", "loader.py")) as f:
+        assert not _jax_tree_paths(f.read())
 
 
 def test_chip_smoke_refuses_without_cuda():

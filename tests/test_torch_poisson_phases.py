@@ -300,19 +300,19 @@ def test_phase_kernels_need_cuda_tensors():
 def test_each_thread_keeps_one_stream(monkeypatch):
     """thread_stream hands a thread the same stream on every call, whether
     the device names its index or not, and another thread another stream
-    (PyTorch's stream pool stood in for by a recorder, as this machine has
-    no card)."""
+    (the stream maker, `own_stream`, stood in for by a recorder, as this
+    machine has no card)."""
     import threading
 
     made = []
 
-    class PoolStream:
+    class Recorder:
         def __init__(self, device):
             self.device = torch.device(device)
             made.append(self)
 
     monkeypatch.setattr(poisson_cuda, "_tls", threading.local())
-    monkeypatch.setattr(torch.cuda, "Stream", PoolStream)
+    monkeypatch.setattr(poisson_cuda, "own_stream", Recorder)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     mine = [poisson_cuda.thread_stream(d)
             for d in (torch.device("cuda"), "cuda", "cuda:0",
@@ -323,6 +323,77 @@ def test_each_thread_keeps_one_stream(monkeypatch):
     worker = threading.Thread(target=lambda: other.extend(
         poisson_cuda.thread_stream("cuda") for _ in range(3)))
     worker.start()
-    worker.join()
+    worker.join(timeout=30)
+    assert not worker.is_alive()
     assert all(s is other[0] for s in other) and other[0] is not mine[0]
     assert len(made) == 2
+
+
+def test_thread_stream_needs_a_cuda_device():
+    """As range_mask_cuda: a CPU device raises, and no stream is made."""
+    for dev in ("cpu", torch.device("cpu")):
+        with pytest.raises(ValueError, match="CUDA device"):
+            poisson_cuda.thread_stream(dev)
+
+
+class _FakeStreamLib:
+    """poisson_stream_create without a card: each call hands out a new
+    handle and records it."""
+
+    def __init__(self):
+        import ctypes
+
+        self.made = []
+
+        def create(out):
+            self.made.append(0x1000 + len(self.made))
+            ctypes.cast(out, ctypes.POINTER(ctypes.c_void_p))[0] = \
+                self.made[-1]
+            return 0
+
+        self.poisson_stream_create = create
+
+
+def test_each_thread_gets_a_stream_made_for_it(monkeypatch):
+    """Each thread's stream comes from the stream maker outside PyTorch's
+    pool (poisson_stream_create, wrapped as an ExternalStream on the
+    thread's device), once per thread: 8 threads alive at once get 8
+    handles, a thread's later calls its own, and a thread that moves to
+    another device a new one. No handle is made twice, so none can reach
+    two threads."""
+    import contextlib
+    import threading
+
+    from schwarzwald_tpu_torch.ops import _cuda_build
+
+    lib = _FakeStreamLib()
+
+    class External:
+        def __init__(self, handle, device):
+            self.cuda_stream, self.device = handle, device
+
+    monkeypatch.setattr(poisson_cuda, "_tls", threading.local())
+    monkeypatch.setattr(_cuda_build, "load_kernel_library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "ExternalStream", External)
+    monkeypatch.setattr(torch.cuda, "Stream", None)  # the pool is not asked
+    handles, ready = [], threading.Barrier(8)
+
+    def send():
+        handles.append(poisson_cuda.thread_stream("cuda:0").cuda_stream)
+        assert poisson_cuda.thread_stream("cuda:0").cuda_stream == handles[-1]
+        ready.wait(timeout=30)  # all eight alive at once
+
+    threads = [threading.Thread(target=send) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert sorted(handles) == lib.made and len(set(handles)) == 8
+    first = poisson_cuda.thread_stream("cuda:0")
+    assert first.device == torch.device("cuda", 0)
+    moved = poisson_cuda.thread_stream("cuda:1")
+    assert moved.device == torch.device("cuda", 1)
+    assert len(set(lib.made)) == len(lib.made) == 10

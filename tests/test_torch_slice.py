@@ -1,7 +1,7 @@
 """The port's default tiler path against the JAX package, end to end on the
-CPU: the engine node for node, the CLI byte for byte, a run interrupted in
-one package and resumed in the other, and the port's refusals of what it
-does not do yet. Every comparison is exact."""
+CPU: the engine node for node, the CLI byte for byte (the tiler and the
+converter), a run interrupted in one package and resumed in the other, and
+the port's refusals (no card, no `auto`). Every comparison is exact."""
 import importlib
 import json
 import os
@@ -231,12 +231,24 @@ def test_port_refuses_what_is_not_ported(tmp_path, argv):
     assert not out.exists()
 
 
-def test_port_refuses_converter(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli("schwarzwald_tpu_torch", ["--converter", "-i", str(tmp_path),
-                                      "-o", str(tmp_path / "out")])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        schwarzwald_tpu_torch.convert(str(tmp_path), str(tmp_path / "o"))
+def test_cli_converter_writes_the_jax_tree(tmp_path):
+    """The default tiler tree (3D Tiles, MIN_DISTANCE) converted to LAZ by
+    the port's --converter and by the JAX package's, byte for byte."""
+    src = tmp_path / "in.las"
+    write_las(src, 8000, 6)
+    tiled = tmp_path / "tiled"
+    assert cli("schwarzwald_tpu", ["--tiler", "-i", str(src), "-o",
+                                   str(tiled)]) == 0
+    outs = []
+    for pkg in PACKAGES:
+        out = tmp_path / f"conv_{pkg}"
+        assert cli(pkg, ["--converter", "-i", str(tiled), "-o", str(out),
+                         "--output-format", "LAZ"]) == 0
+        outs.append(out)
+    a, b = (sorted(os.listdir(o)) for o in outs)
+    assert a == b and "r.laz" in a
+    for name in a:
+        assert (outs[0] / name).read_bytes() == (outs[1] / name).read_bytes()
 
 
 # -- state across packages: a JAX run resumed by the port ----------------------
