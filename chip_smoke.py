@@ -31,8 +31,15 @@ each phase prints its seconds:
      every input point, and K2 must have been launched. Each device range's
      time is split into upload, prep (AABBs and pair CSR), phase A + B and
      download, each as stream time and as the sending thread's wall and
-     CPU time; each worker thread's ranges must have run on one stream of
-     its own, and the ranges on more than one stream;
+     CPU time; no two sending threads alive at once may share a stream
+     (each thread's ranges on one stream per device, no overlap of two
+     threads' spans on one stream in the trace), the streams made in the
+     process may not exceed the sending threads alive at once, and the
+     ranges must run on more than one stream;
+ 3b. the same cloud in 4 batches (internal cache 2.5M points), MIN_DISTANCE,
+     on the card and on the host: byte-identical trees; the threads, pools
+     and streams of the device ranges under phase 3's rules, with the
+     streams made and torch.cuda.memory_reserved() after each batch;
   4. the batch step (kernel K1): 10M uniform float64 positions through
      encode_sort_batch on the card and the host grid coordinates through
      encode_sort_grid, against the host encode + sort + histogram; the
@@ -63,8 +70,17 @@ each phase prints its seconds:
      and on the host runs' trees, byte for byte: the ENTWINE_LAZ tree to
      3D Tiles, phase 3's 3D Tiles tree to LAZ and to LAS at --max-depth 4,
      with each conversion's points per second;
-  8. the summary: one JSON line for the kernels (with each kernel's
-     launches on every path that ran it), then the result line.
+  8. the sanitizers: the kernels' checker (ops/sanitize_kernels.py: K2 on
+     six phase 2 cases in both modes, one of them from 8 threads at once,
+     and K1 at 10,000,001 points, each against its plain version) run with
+     every torch.empty poisoned, then under compute-sanitizer's memcheck,
+     racecheck, synccheck and initcheck (each in its own process, limited
+     to K1's and K2's kernels, with its own timeout), after a self-check
+     that learns whether the tool supports the card; a tool that refuses
+     the card is reported, any other error or a timeout fails;
+  9. the summary: one JSON line for the kernels (with each kernel's
+     launches on every path that ran it and the sanitizers' results), then
+     the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -82,10 +98,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MAIN_PATH_POINTS = 10_000_000   # the reference's default batch
 GRID_SMALL_POINTS = 1_000_000   # GRID_CENTER and JITTERED runs
 TIMING_CASE = "uniform_262144"  # the K2 row's ms / plain_ms
-ROOT_POINTS = 5_490_148         # the 10M main path's root range
-ROOT_CASE = f"root_{ROOT_POINTS}"
-DENSE_POINTS = 92_160           # 180 blocks at the pair gate's edge
 K1_SIZES = (10_000_000, 10_000_001)
+BATCHED_CACHE = 2_500_000       # phase 3b: the 10M cloud in 4 batches
+TRACED_RANGES: list = []        # every traced device range of the process
 
 
 def fail(msg: str) -> int:
@@ -135,19 +150,33 @@ def event_ms(fn, launches: int = 20, reps: int = 3):
     return out, sorted(times)[reps // 2]
 
 
-def sorted_range(pos, extent):
-    """Clamp, Morton-encode and sort a cloud with the port's indexing."""
-    import numpy as np
-
-    from schwarzwald_tpu_torch.ops import indexing
-
-    keys, clamped = indexing.index_points(pos, np.zeros(3),
-                                          np.full(3, extent))
-    _, order = indexing.sort_with_keys(keys)
-    return clamped[order]
-
-
 # -- phase 1: build --------------------------------------------------------------
+
+def kernel_sass(name: str, lineinfo: bool):
+    """The SASS of csrc/<name>.cu compiled to a cubin with the build's
+    code-generation flags, with or without -lineinfo, its line-table
+    comments removed; None when the toolkit has no cuobjdump."""
+    import tempfile
+
+    from schwarzwald_tpu_torch.ops import _cuda_build
+
+    nvcc = _cuda_build.nvcc_path()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.access(cuobjdump, os.X_OK):
+        return None
+    flags = [f for f in _cuda_build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+             and (lineinfo or f != "-lineinfo")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, f"{name}.cubin")
+        src = os.path.join(_cuda_build.CSRC_DIR, f"{name}.cu")
+        for cmd in ([nvcc, *flags, "-cubin", "-o", cubin, src],
+                    [cuobjdump, "-sass", cubin]):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{' '.join(cmd)}: {proc.stderr[-2000:]}")
+    return [line for line in proc.stdout.splitlines() if "//##" not in line]
+
 
 def phase_build() -> None:
     """Build the native host kernels and every CUDA source in parallel."""
@@ -162,14 +191,33 @@ def phase_build() -> None:
             raise RuntimeError("native host kernels did not build")
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(7) as pool:
         host = pool.submit(build_native)
         cuda = [pool.submit(_cuda_build.load_kernel_library, name)
                 for name in ("poisson", "morton")]
+        sass = {(name, lineinfo): pool.submit(kernel_sass, name, lineinfo)
+                for name in ("poisson", "morton")
+                for lineinfo in (True, False)}
         seconds = host.result()
         for f in cuda:
             f.result()
+        sass = {key: f.result() for key, f in sass.items()}
     print(f"build: native host kernels {seconds:.1f} s", flush=True)
+    for name in ("poisson", "morton"):
+        with_lines, without = sass[name, True], sass[name, False]
+        if with_lines is None:
+            print(f"build: csrc/{name}.cu -lineinfo not checked: no "
+                  f"cuobjdump beside nvcc", flush=True)
+            continue
+        if with_lines != without:
+            diff = [f"{a!r} / {b!r}" for a, b in zip(with_lines, without)
+                    if a != b][:3]
+            raise RuntimeError(f"csrc/{name}.cu: -lineinfo changed the SASS "
+                               f"({len(with_lines)} / {len(without)} lines; "
+                               f"first differences {diff})")
+        print(f"build: csrc/{name}.cu -lineinfo changes no instruction "
+              f"({len(with_lines)} SASS lines equal with and without it)",
+              flush=True)
     for precision in ("f64", "f32"):
         poisson_cuda._kernel_fns(precision)
     morton_cuda._kernel_fn()
@@ -183,42 +231,6 @@ def phase_build() -> None:
 
 
 # -- phase 2: kernels against their plain versions ---------------------------------
-
-def poisson_cases():
-    """(name, sorted positions, spacing, analyze mask, extent, precision
-    modes). The root-shaped range is the 10M main path's largest (the
-    root's 5,490,148 points at the root spacing, 1000 * sqrt(3) / 250); the
-    dense range sits at the pair gate's edge (87.5 pairs per block, 1.8e9
-    close pairs), so the kernels run window by window."""
-    import numpy as np
-
-    rng = np.random.default_rng(20260816)
-    ext = 64.0
-    both = ("f64", "f32")
-    cases = []
-    for n in (4096, 262_144, 1_500_000):
-        pos = sorted_range(rng.uniform(0.0, ext, (n, 3)), ext)
-        cases.append((f"uniform_{n}", pos, 2.0, None, ext, both))
-    centers = rng.uniform(4.0, ext - 4.0, (64, 3))
-    pos = np.concatenate([c + rng.normal(0.0, 0.8, (3000, 3))
-                          for c in centers])
-    cases.append(("clustered_192000",
-                  sorted_range(np.clip(pos, 0.0, ext - 1e-9), ext), 0.6,
-                  None, ext, both))
-    pos = sorted_range(rng.uniform(0.0, ext, (262_144, 3)), ext)
-    pos[5000:6000] = pos[4999]  # a run of exact duplicates
-    cases.append(("duplicates_262144", pos, 1.0, None, ext, both))
-    pos = sorted_range(rng.uniform(0.0, ext, (262_144, 3)), ext)
-    analyze = np.zeros(pos.shape[0], dtype=bool)
-    analyze[::3] = True
-    cases.append(("analyze3_262144", pos, 2.0, analyze, ext, both))
-    pos = sorted_range(rng.uniform(0.0, 10.0, (DENSE_POINTS, 3)), 10.0)
-    cases.append((f"dense_{DENSE_POINTS}", pos, 6.0, None, 10.0, both))
-    pos = sorted_range(rng.uniform(0.0, 1000.0, (ROOT_POINTS, 3)), 1000.0)
-    cases.append((ROOT_CASE, pos, 1000.0 * 3 ** 0.5 / 250, None, 1000.0,
-                  ("f64",)))
-    return cases
-
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): memory,
 # and f64 / f32 outside the tensor cores
@@ -280,6 +292,8 @@ def phase_poisson_kernel(report: dict) -> None:
 
     from schwarzwald_tpu_torch import native
     from schwarzwald_tpu_torch.ops import poisson_cuda
+    from schwarzwald_tpu_torch.ops.sanitize_kernels import (ROOT_CASE,
+                                                            poisson_cases)
 
     host_kernel = native.poisson_sample_kernel()
     dev = torch.device("cuda")
@@ -387,22 +401,6 @@ def check_phases(name, precision, planes, ana, p, ptr, bj, mask,
                            f"from its plain version")
 
 
-def edge_coords(n: int, seed: int):
-    """(n,) int32 random 21-bit coordinates per axis whose first rows are
-    the one-hot edge rows (each bit alone, 0 and 2^21 - 1 on one axis,
-    the other two at 0)."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    axes = [rng.integers(0, 1 << 21, n).astype(np.int32) for _ in range(3)]
-    oh = np.array([1 << i for i in range(21)] + [0, (1 << 21) - 1],
-                  dtype=np.int32)
-    for a in range(3):
-        for b in range(3):
-            axes[a][b * oh.size:(b + 1) * oh.size] = oh if a == b else 0
-    return axes
-
-
 def phase_morton_kernel(report: dict) -> None:
     """K1 vs its plain version and the host encode on the card."""
     import numpy as np
@@ -410,6 +408,7 @@ def phase_morton_kernel(report: dict) -> None:
 
     from schwarzwald_tpu_torch.core import morton
     from schwarzwald_tpu_torch.ops import morton_cuda
+    from schwarzwald_tpu_torch.ops.sanitize_kernels import edge_coords
 
     max_err = 0
     for n in K1_SIZES:
@@ -498,6 +497,46 @@ def write_uniform_las(path: str, n: int) -> None:
                   AABB([0.0] * 3, [1000.0] * 3))
 
 
+def check_streams(label: str, ranges: list) -> dict:
+    """Print and check how the sending threads held their streams: no two
+    threads alive at once on one stream, one stream per thread and device,
+    no more streams made in the process than the peak of sending threads
+    alive at once over every traced run so far, and more than one stream
+    in play."""
+    from schwarzwald_tpu_torch.ops import poisson_cuda
+
+    TRACED_RANGES.extend(ranges)
+    threads, streams, pools = {}, set(), {}
+    for r in ranges:
+        threads.setdefault(r["thread"], set()).add(r["stream"])
+        streams.add(r["stream"])
+    for name in threads:  # ThreadPoolExecutor-<pool>_<worker>
+        pool = name.rsplit("_", 1)[0]
+        pools[pool] = pools.get(pool, 0) + 1
+    peak = poisson_cuda.peak_live_senders(ranges)
+    peak_all = poisson_cuda.peak_live_senders(TRACED_RANGES)
+    stats = poisson_cuda.stream_stats()
+    print(f"{label}: {len(threads)} threads sent ranges "
+          f"({', '.join(f'{p} x{k}' for p, k in sorted(pools.items()))}) "
+          f"from {len(pools)} pools, on {len(streams)} streams; at most "
+          f"{peak} sending threads alive at once ({peak_all} over the "
+          f"process's traced runs); streams made in the process "
+          f"{stats['made']} (held {stats['held']}, free "
+          f"{stats['free']}, peak held {stats['peak_held']})", flush=True)
+    faults = poisson_cuda.stream_sharing_faults(ranges)
+    if faults:
+        raise RuntimeError(f"{label}: {'; '.join(faults[:5])}")
+    if stats["made"] > peak_all:
+        raise RuntimeError(f"{label}: {stats['made']} streams made, more "
+                           f"than the {peak_all} sending threads alive at "
+                           f"once")
+    if len(streams) < 2 and len(ranges) > 1 and (os.cpu_count() or 1) > 1:
+        raise RuntimeError(f"{label}: every device range ran on one stream "
+                           f"while the engine had more than one worker")
+    return {"threads": len(threads), "pools": len(pools), "peak": peak,
+            "peak_all": peak_all, **stats}
+
+
 def phase_min_distance(work: str, report: dict, card: str) -> None:
     import schwarzwald_tpu_torch as sz
     from schwarzwald_tpu_torch.ops import poisson_cuda
@@ -553,26 +592,7 @@ def phase_min_distance(work: str, report: dict, card: str) -> None:
                   f"{sum(r['A'] for r in rs):.1f}, B "
                   f"{sum(r['B'] for r in rs):.1f}); final synchronise "
                   f"{sum(r['wait_ms'] for r in rs):.1f}", flush=True)
-        # one stream per worker thread, no stream shared between threads
-        streams = {r["stream"] for r in ranges}
-        threads = {}
-        for r in ranges:
-            threads.setdefault(r["thread"], set()).add(r["stream"])
-        pools = {}
-        for name in threads:  # ThreadPoolExecutor-<pool>_<worker>
-            pool = name.rsplit("_", 1)[0]
-            pools[pool] = pools.get(pool, 0) + 1
-        print(f"main path cuda: {len(threads)} threads sent ranges "
-              f"({', '.join(f'{p} x{k}' for p, k in sorted(pools.items()))})"
-              f", on {len(streams)} streams", flush=True)
-        if any(len(s) != 1 for s in threads.values()):
-            raise RuntimeError("a worker thread ran its ranges on more than "
-                               "one stream")
-        if len(streams) != len(threads):
-            raise RuntimeError("worker threads shared a stream")
-        if len(streams) < 2 and len(ranges) > 1 and (os.cpu_count() or 1) > 1:
-            raise RuntimeError("every device range ran on one stream while "
-                               "the engine had more than one worker")
+        check_streams("main path cuda", ranges)
     n_files = compare_trees(os.path.join(work, "out_cuda"),
                             os.path.join(work, "out_host"))
     # ancestors rebuilt at finalize repeat points of their children, so
@@ -585,6 +605,81 @@ def phase_min_distance(work: str, report: dict, card: str) -> None:
           f"{n_points} points in the tiles; cuda/host rate "
           f"{rates['cuda'] / rates['host']:.3f}", flush=True)
     # cloud.las, out_cuda and out_host stay for phases 6 and 7
+
+
+def phase_batched_min_distance(work: str, report: dict, card: str) -> None:
+    """Phase 3's cloud tiled in 4 batches (internal cache 2.5M points) with
+    MIN_DISTANCE, on the card and on the host: byte-identical trees, K2
+    launched, and the streams: every batch and reconstructed level makes a
+    new thread pool, and the streams made must stay within the sending
+    threads alive at once. Prints the streams made and the memory the
+    caching allocator holds at the start (its cache emptied), after each
+    batch and after the finalize."""
+    import torch
+
+    import schwarzwald_tpu_torch as sz
+    from schwarzwald_tpu_torch.ops import poisson_cuda
+    from schwarzwald_tpu_torch.tiling.engine import TilingAlgorithmFast
+
+    src = os.path.join(work, "cloud.las")
+    process_batch = TilingAlgorithmFast.process_batch
+    finalize = TilingAlgorithmFast.finalize
+    marks = []
+
+    def observed(fn, label):  # observation only
+        def call(self, *args):
+            fn(self, *args)
+            marks.append((label, poisson_cuda.stream_stats()["made"],
+                          torch.cuda.memory_reserved()))
+        return call
+
+    rates = {}
+    for mode in ("cuda", "host"):
+        out = os.path.join(work, f"batched_{mode}")
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks
+        marks[:] = [("start", poisson_cuda.stream_stats()["made"],
+                     torch.cuda.memory_reserved())]
+        poisson_cuda.trace = []
+        poisson_cuda.reset_counters()
+        TilingAlgorithmFast.process_batch = observed(process_batch, "batch")
+        TilingAlgorithmFast.finalize = observed(finalize, "finalize")
+        t0 = time.perf_counter()
+        try:
+            sz.tile([src], out, use_device=mode,
+                    internal_cache_size=BATCHED_CACHE)
+        finally:
+            seconds = time.perf_counter() - t0
+            TilingAlgorithmFast.process_batch = process_batch
+            TilingAlgorithmFast.finalize = finalize
+            counts = poisson_cuda.snapshot()
+            ranges, poisson_cuda.trace = poisson_cuda.trace, None
+        rates[mode] = MAIN_PATH_POINTS / seconds
+        batches = sum(1 for label, _, _ in marks if label == "batch")
+        print(f"batched {mode}: {batches} batches, {seconds:.2f} s, "
+              f"{rates[mode]:.0f} points/s on {card}; counters {counts}",
+              flush=True)
+        if batches != MAIN_PATH_POINTS // BATCHED_CACHE:
+            raise RuntimeError(f"batched {mode}: {batches} batches")
+        if mode == "host":
+            if counts["launches"] or ranges:
+                raise RuntimeError("the host run launched the kernels")
+            continue
+        report["launches_by_path"]["3b MIN_DISTANCE in 4 batches"] = \
+            counts["launches"]
+        if counts["launches"] <= 0 or not ranges:
+            raise RuntimeError("the batched run launched no Poisson kernel")
+        print("batched cuda: at the start, after each batch and after the "
+              "finalize, streams made / memory reserved: " + "; ".join(
+                  f"{label} {made} / {reserved / 2 ** 20:.0f} MiB"
+                  for label, made, reserved in marks), flush=True)
+        print(f"batched cuda: {len(ranges)} device ranges", flush=True)
+        check_streams("batched cuda", ranges)
+    n_files = compare_trees(os.path.join(work, "batched_cuda"),
+                            os.path.join(work, "batched_host"))
+    print(f"batched: {n_files} files byte-identical (cuda vs host); "
+          f"cuda/host rate {rates['cuda'] / rates['host']:.3f}", flush=True)
+    for mode in ("cuda", "host"):
+        shutil.rmtree(os.path.join(work, f"batched_{mode}"))
 
 
 # -- phase 4: the batch step -------------------------------------------------------
@@ -1116,6 +1211,98 @@ def phase_sinks_and_converter(work: str, k2: dict, card: str) -> None:
             shutil.rmtree(os.path.join(work, f"conv_{mode}"))
 
 
+# -- phase 8: the kernels under compute-sanitizer ------------------------------
+
+SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
+SANITIZED_KERNELS = "kns=interleave_kernel|close_kernel|decide_kernel"
+SANITIZER_TIMEOUT_S = 300
+REFUSED = "Device not supported"
+
+
+def run_checker(prefix: list, args: list, timeout: int) -> tuple:
+    """(exit code, seconds, output) of the kernels' sanitizer checker under
+    `prefix` (a tool's command line, or nothing); a timeout raises. Under a
+    tool, PyTorch's caching allocator is off, so that memcheck sees each
+    tensor at its own size; alone, the checker keeps it (without it, every
+    allocation of the plain versions' per-block loops is a cudaMalloc)."""
+    cmd = prefix + [sys.executable, "-m",
+                    "schwarzwald_tpu_torch.ops.sanitize_kernels"] + args
+    env = dict(os.environ)
+    if prefix:
+        env["PYTORCH_NO_CUDA_MEMORY_CACHING"] = "1"
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"{' '.join(cmd[:6])} ... timed out after "
+                           f"{timeout} s") from None
+    return (proc.returncode, time.perf_counter() - t0,
+            proc.stdout + proc.stderr)
+
+
+def sanitizer_errors(output: str) -> str:
+    """The tool's own count: its ERROR or RACECHECK SUMMARY line."""
+    lines = [line.split("=========", 1)[-1].strip()
+             for line in output.splitlines() if "SUMMARY" in line]
+    return lines[-1] if lines else "no summary line"
+
+
+def phase_sanitizers(k1: dict, k2: dict) -> None:
+    """The checker alone with every torch.empty poisoned, then under each
+    compute-sanitizer tool: a self-check first (one K1 launch), then the
+    whole checker, each tool in its own process with its own timeout.
+    A tool that refuses the card (its "Device not supported") is reported
+    as such; any other error or a timeout fails the phase."""
+    from schwarzwald_tpu_torch.ops._cuda_build import nvcc_path
+
+    rc, seconds, out = run_checker([], ["--poison"], SANITIZER_TIMEOUT_S)
+    for line in out.splitlines():
+        if line.startswith(("K1 ", "K2 ", "sanitize_kernels")):
+            print(f"  poisoned: {line}", flush=True)
+    if rc != 0:
+        raise RuntimeError(f"the poisoned checker failed (exit code {rc}): "
+                           f"{out[-2000:]}")
+    results = {"poisoned": f"equal in {seconds:.1f} s"}
+    tool = os.path.join(os.path.dirname(nvcc_path()), "compute-sanitizer")
+    if not os.access(tool, os.X_OK):
+        print(f"sanitizers: no compute-sanitizer at {tool}", flush=True)
+        results.update({t: f"absent at {tool}" for t in SANITIZER_TOOLS})
+    else:
+        def prefix(t):
+            return [tool, "--tool", t, "--error-exitcode", "1",
+                    "--kernel-regex", SANITIZED_KERNELS]
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(len(SANITIZER_TOOLS)) as pool:
+            checks = {t: pool.submit(run_checker, prefix(t), ["--self-check"],
+                                     SANITIZER_TIMEOUT_S)
+                      for t in SANITIZER_TOOLS}
+            checks = {t: f.result() for t, f in checks.items()}
+        for t in SANITIZER_TOOLS:
+            rc, seconds, out = checks[t]
+            refusal = [line.split("=========", 1)[-1].strip()
+                       for line in out.splitlines() if REFUSED in line]
+            if refusal:
+                print(f"sanitizer {t}: {tool} refuses this card: "
+                      f"{refusal[0]}", flush=True)
+                results[t] = f"refused by the card: {refusal[0]}"
+                continue
+            if rc != 0:
+                raise RuntimeError(f"{t} self-check failed (exit code {rc}):"
+                                   f" {out[-2000:]}")
+            rc, seconds, out = run_checker(prefix(t), [], SANITIZER_TIMEOUT_S)
+            errors = sanitizer_errors(out)
+            print(f"sanitizer {t}: {seconds:.1f} s, {errors}, exit code {rc}",
+                  flush=True)
+            if rc != 0:
+                raise RuntimeError(f"{t} failed (exit code {rc}): "
+                                   f"{out[-3000:]}")
+            results[t] = f"{errors} in {seconds:.1f} s"
+    k1["sanitizers"] = k2["sanitizers"] = results
+
+
 # -- main --------------------------------------------------------------------------
 
 def timed_phase(name: str, fn, *args) -> None:
@@ -1171,6 +1358,8 @@ def main() -> int:
     try:
         timed_phase("3 MIN_DISTANCE main path", phase_min_distance, work, k2,
                     smi)
+        timed_phase("3b MIN_DISTANCE in 4 batches",
+                    phase_batched_min_distance, work, k2, smi)
         timed_phase("4 batch step", phase_batch_step, k1, smi)
         timed_phase("5 grid samplers", phase_grid_samplers, work, smi)
         timed_phase("6 multichip and multihost", phase_multichip, work, k1,
@@ -1179,10 +1368,11 @@ def main() -> int:
                     phase_sinks_and_converter, work, k2, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    timed_phase("8 sanitizers", phase_sanitizers, k1, k2)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "at", "launches_by_path")
+            "library_ms", "at", "launches_by_path", "sanitizers")
     kernels = [{k: r[k] for k in keys} for r in (k1, k2)]
     kernels[1].update({k: k2[k] for k in ("phase_a_ms", "phase_b_ms",
                                           "scratch_mib")})

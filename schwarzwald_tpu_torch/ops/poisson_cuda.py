@@ -45,9 +45,10 @@ Dispatch rules (deterministic, each counted in `counters`):
   * kernel / plain: the range ran on the CUDA kernels (a CUDA device) or on
     the plain-torch version (the CPU).
 `launches` counts kernel launches; the wrapper adds one where it launches a
-kernel and nowhere else. Each worker thread runs its ranges on a CUDA
-stream of its own (`thread_stream`); `trace`, when set to a list, receives
-one record per range that `range_mask_cuda` ran.
+kernel and nowhere else. Each sending thread runs its ranges on a CUDA
+stream that no other live thread holds (`thread_stream`, `StreamPool`);
+`trace`, when set to a list, receives one record per range that
+`range_mask_cuda` ran.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ import ctypes
 import math
 import threading
 import time
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -476,9 +478,6 @@ def phase_ms(stats: dict) -> dict:
     return ms
 
 
-_tls = threading.local()
-
-
 def own_stream(device: torch.device) -> torch.cuda.ExternalStream:
     """A CUDA stream on `device` made outside PyTorch's pool
     (`poisson_stream_create` in csrc/poisson.cu, non-blocking). The pool
@@ -486,10 +485,9 @@ def own_stream(device: torch.device) -> torch.cuda.ExternalStream:
     would give two threads one stream; each call here makes a new one.
 
     The stream lives for the process: it is never destroyed, so its handle
-    is never handed to another thread, and a trace that names a range's
-    stream by its handle names one thread's stream. The engine starts
-    about two sending threads per core and run; a CUDA stream is a small
-    object."""
+    never names another stream, and a trace that names a range's stream by
+    its handle names one stream. `StreamPool` hands it from thread to
+    thread."""
     from ._cuda_build import load_kernel_library
 
     lib = load_kernel_library("poisson")
@@ -503,21 +501,172 @@ def own_stream(device: torch.device) -> torch.cuda.ExternalStream:
     return torch.cuda.ExternalStream(handle.value, device=device)
 
 
+class StreamPool:
+    """The streams of `own_stream`, handed to the sending threads: a free
+    list per device, behind a lock. A thread takes a stream at its first
+    range on a device and holds it until it ends; a new stream is made only
+    when the device's free list is empty once the streams of every thread
+    that has ended are back in it, so the streams made never exceed the
+    peak number of threads holding one at once. The engine makes a new
+    thread pool per batch and per reconstructed level, and its threads
+    come and go; the streams stay with the pools' width, not with the
+    number of threads that ever sent a range.
+
+    A thread's streams come back when its locals are cleared as it ends
+    (`_ThreadStreams.__del__`), or, should that come after the next thread
+    asks (CPython may clear them after `join()` has returned), when `take`
+    finds the free list empty and the thread no longer alive.
+
+    A stream goes back with its thread's last work possibly still queued
+    on it. That is safe: the next holder's work on the stream runs after
+    it, in stream order, and the thread synchronised the stream before it
+    read any result."""
+
+    def __init__(self):
+        self._lock = threading.RLock()  # __del__ may give back inside take
+        self._free: dict = {}  # device -> [stream]
+        # id -> the _ThreadStreams holding streams, held weakly: a holder
+        # dies with its thread's locals, and its __del__ gives them back
+        self._holders = weakref.WeakValueDictionary()
+        self.made = 0
+        self.peak_held = 0
+
+    def _held(self) -> int:
+        return sum(len(h.streams) for h in self._holders.values())
+
+    def _give(self, holder) -> None:
+        with self._lock:
+            for device, stream in holder.streams.items():
+                self._free.setdefault(device, []).append(stream)
+            holder.streams = {}
+            self._holders.pop(id(holder), None)
+
+    def take(self, holder, device: torch.device):
+        """A stream on `device` for `holder`'s thread, recorded in it."""
+        with self._lock:
+            free = self._free.setdefault(device, [])
+            if not free:
+                for h in list(self._holders.values()):
+                    if not h.thread.is_alive():
+                        self._give(h)
+            stream = free.pop() if free else None
+            if stream is None:
+                self.made += 1
+        if stream is None:
+            try:
+                stream = own_stream(device)
+            except BaseException:
+                with self._lock:
+                    self.made -= 1
+                raise
+        with self._lock:
+            holder.streams[device] = stream
+            self._holders[id(holder)] = holder
+            self.peak_held = max(self.peak_held, self._held())
+        return stream
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"made": self.made, "held": self._held(),
+                    "peak_held": self.peak_held,
+                    "free": sum(map(len, self._free.values()))}
+
+
+class _ThreadStreams:
+    """One thread's streams, by device, held in the thread's locals; they
+    go back to the pool when the thread's locals are cleared."""
+
+    def __init__(self, pool: StreamPool, thread: threading.Thread):
+        self.pool, self.thread = pool, thread
+        self.streams: dict = {}
+
+    def __del__(self):
+        self.pool._give(self)
+
+
+_pool = StreamPool()
+_tls = threading.local()
+
+
+def stream_stats() -> dict:
+    """The stream pool's counts: streams made in this process, streams held
+    by threads now, the peak of those, and streams free."""
+    return _pool.stats()
+
+
 def thread_stream(device: torch.device | str) -> torch.cuda.ExternalStream:
-    """The calling thread's CUDA stream on `device`: one `own_stream` made
-    at the thread's first call and kept for its later calls, so that ranges
-    sent from several worker threads run on the card at once, each thread
-    on a stream no other thread has. `cuda` with no index means the current
-    device."""
+    """The calling thread's CUDA stream on `device`, taken from the
+    `StreamPool` at the thread's first call on that device and kept for its
+    later calls, on that device and beside the streams it holds on others:
+    ranges sent from several worker threads run on the card at once, and
+    no two threads alive at once share a stream. `cuda` with no index means
+    the current device."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"thread_stream needs a CUDA device, got {device}")
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
-    stream = getattr(_tls, "stream", None)
-    if stream is None or stream.device != device:
-        stream = _tls.stream = own_stream(device)
+    mine = getattr(_tls, "streams", None)
+    if mine is None:
+        mine = _tls.streams = _ThreadStreams(_pool,
+                                             threading.current_thread())
+    stream = mine.streams.get(device)
+    if stream is None:
+        stream = mine.pool.take(mine, device)
     return stream
+
+
+def stream_sharing_faults(records: list) -> list:
+    """What a `trace` shows against the rule that no two threads alive at
+    once share a stream: a thread that ran ranges on two streams of one
+    device, or a stream on which two threads' spans (first range start to
+    last range end; a thread holds its stream at least that long) overlap.
+    Returns one message per fault."""
+    faults = []
+    per_thread: dict = {}
+    spans: dict = {}
+    for r in records:
+        per_thread.setdefault((r["thread"], r["device"]), set()).add(
+            r["stream"])
+        span = spans.setdefault(r["stream"], {}).setdefault(
+            r["thread"], [r["t0"], r["t1"]])
+        span[0], span[1] = min(span[0], r["t0"]), max(span[1], r["t1"])
+    for (thread, device), streams in sorted(per_thread.items()):
+        if len(streams) > 1:
+            faults.append(f"thread {thread} ran ranges on {len(streams)} "
+                          f"streams of {device}")
+    for stream, by_thread in spans.items():
+        ordered = sorted(by_thread.items(), key=lambda kv: kv[1][0])
+        for (ta, (_, end)), (tb, (start, _)) in zip(ordered, ordered[1:]):
+            if start < end:
+                faults.append(f"threads {ta} and {tb} held stream "
+                              f"{stream:#x} at once")
+    return faults
+
+
+def peak_live_senders(records: list) -> int:
+    """A lower bound, from a `trace`, on the sending threads alive at once:
+    a thread is alive from its first range's start to its pool's last
+    range's end (a ThreadPoolExecutor's workers, `<pool>_<k>`, live until
+    the pool shuts down, after its last range), the main thread to the end
+    of the process, and any other thread to its own last range's end."""
+    first, pool_of, end = {}, {}, {}
+    for r in records:
+        t = r["thread"]
+        first[t] = min(first.get(t, r["t0"]), r["t0"])
+        pool = (t.rsplit("_", 1)[0] if t.startswith("ThreadPoolExecutor-")
+                else t)
+        pool_of[t] = pool
+        end[pool] = (math.inf if t == "MainThread"
+                     else max(end.get(pool, r["t1"]), r["t1"]))
+    # ends before starts at one instant: a lower bound
+    events = sorted([(first[t], 1) for t in first]
+                    + [(end[pool_of[t]], -1) for t in first])
+    alive = peak = 0
+    for _, step in events:
+        alive += step
+        peak = max(peak, alive)
+    return peak
 
 
 def range_mask_cuda(positions: np.ndarray, spacing: float,
@@ -533,7 +682,9 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
     prep, kernel, download), its stream time from CUDA events (`*_ms`), the
     calling thread's wall time enqueueing it, synchronises inside the part
     included (`host_*_ms`), and that thread's CPU time over the same span
-    (`cpu_*_ms`); `wait_ms` is the wall time of the final synchronise."""
+    (`cpu_*_ms`); `wait_ms` is the wall time of the final synchronise;
+    `t0` and `t1` are the range's start and the end of that synchronise on
+    the host's clock (`time.perf_counter`)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"range_mask_cuda needs a CUDA device, got {device}")
@@ -581,7 +732,9 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
         synced = time.perf_counter()
     if records is not None:
         record = {"n": n, "stream": stream.cuda_stream,
+                  "device": str(device),
                   "thread": threading.current_thread().name,
+                  "t0": marks[0][1], "t1": synced,
                   "windows": stats["windows"], **phase_ms(stats),
                   "wait_ms": (synced - marks[-1][1]) * 1e3}
         for part, (a, b) in zip(("upload", "prep", "kernel", "download"),

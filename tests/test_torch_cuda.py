@@ -209,6 +209,67 @@ def test_forty_threads_get_forty_streams(cuda):
         np.testing.assert_array_equal(masks[k], want)
 
 
+def test_successive_pools_send_on_the_same_streams(cuda):
+    """Two pools of 20 threads one after the other, all 20 alive at once
+    in each, as the engine makes one per batch and per level: the second
+    pool's threads hold the first pool's 20 streams, no stream is made
+    past the first pool, and every mask equals the native host kernel's."""
+    import concurrent.futures as cf
+    import threading
+
+    pos = sorted_uniform(6000, 31)
+    want = native.poisson_sample_kernel()(pos, np.zeros(3),
+                                          np.full(3, EXTENT), 1.5, None)
+    handed, made = [], []
+    for _ in range(2):
+        ready = threading.Barrier(20)
+
+        def send(k):
+            mask = poisson_cuda.range_mask_cuda(pos, 1.5)
+            stream = poisson_cuda.thread_stream(cuda).cuda_stream
+            ready.wait(timeout=120)  # no thread ends before all have one
+            return mask, stream
+
+        with cf.ThreadPoolExecutor(20) as pool:
+            out = list(pool.map(send, range(20)))
+        handed.append({s for _, s in out})
+        made.append(poisson_cuda.stream_stats()["made"])
+        for mask, _ in out:
+            np.testing.assert_array_equal(mask, want)
+    assert len(handed[0]) == 20 and handed[1] == handed[0]
+    assert made[1] == made[0]
+
+
+def test_kernels_under_memcheck(cuda):
+    """The kernels' sanitizer checker on uniform_262144 (both modes) and K1
+    under compute-sanitizer's memcheck, limited to K1's and K2's kernels:
+    no error. Skips where the toolkit has no compute-sanitizer or the tool
+    refuses the card."""
+    import os
+    import subprocess
+    import sys
+
+    from schwarzwald_tpu_torch.ops import _cuda_build
+
+    tool = os.path.join(os.path.dirname(_cuda_build.nvcc_path()),
+                        "compute-sanitizer")
+    if not os.access(tool, os.X_OK):
+        pytest.skip(f"no compute-sanitizer at {tool}")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [tool, "--tool", "memcheck", "--error-exitcode", "1",
+         "--kernel-regex", "kns=interleave_kernel|close_kernel|decide_kernel",
+         sys.executable, "-m", "schwarzwald_tpu_torch.ops.sanitize_kernels",
+         "--cases", "uniform_262144", "--threads", "0", "--k1-points",
+         "100003"], cwd=root, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1"))
+    out = proc.stdout + proc.stderr
+    if "Device not supported" in out:
+        pytest.skip(f"{tool} refuses this card")
+    assert proc.returncode == 0, out[-3000:]
+    assert "ERROR SUMMARY: 0 errors" in out
+
+
 def test_wrapper_checks_its_inputs(cuda):
     p = poisson_cuda.prep(sorted_uniform(4096, 7), 2.0)
     planes, ana, ptr, bj = on_card(p, cuda)

@@ -15,10 +15,10 @@ _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax\b|schwarzwald_tpu(?!_torch)\b)")
 
 
-def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+def _port_sources(suffixes=(".py",)):
+    out = [os.path.join(ROOT, "chip_smoke.py")] if ".py" in suffixes else []
     for d, _, files in os.walk(PORT):
-        out.extend(os.path.join(d, f) for f in files if f.endswith(".py"))
+        out.extend(os.path.join(d, f) for f in files if f.endswith(suffixes))
     return sorted(out)
 
 
@@ -33,6 +33,8 @@ def _port_sources():
      "schwarzwald_tpu_torch.parallel.multihost",
      "schwarzwald_tpu_torch.entry",
      "schwarzwald_tpu_torch.process.converter"),
+    ("schwarzwald_tpu_torch.ops.sanitize_kernels",
+     "schwarzwald_tpu_torch.native.tsan_stress"),
 ])
 def test_import_pulls_in_no_jax(modules):
     code = ("import sys\n"
@@ -48,8 +50,10 @@ def test_import_pulls_in_no_jax(modules):
 
 
 def test_source_scan_finds_no_jax_import():
+    """Every Python source of the port, and its shell scripts (a Python
+    line they hand to an interpreter would match too)."""
     offenders = []
-    for path in _port_sources():
+    for path in _port_sources((".py", ".sh")):
         with open(path) as f:
             for no, line in enumerate(f, 1):
                 if _FORBIDDEN.match(line):
@@ -137,3 +141,22 @@ def test_chip_smoke_refuses_without_cuda():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_scripts_and_c_sources_name_no_path_into_the_jax_tree():
+    """The port's shell scripts and C/C++/CUDA sources (native/src, csrc,
+    the ThreadSanitizer harness) name no path under schwarzwald_tpu/
+    outside their comments: they build from the port's own tree."""
+    offenders = []
+    sources = _port_sources((".sh", ".c", ".cpp", ".h", ".hpp", ".cu"))
+    assert any(p.endswith("tsan_check.sh") for p in sources)
+    for path in sources:
+        comment = "#" if path.endswith(".sh") else "//"
+        with open(path, errors="replace") as f:
+            for no, line in enumerate(f, 1):
+                code = line.split(comment, 1)[0]
+                if path.endswith(".sh") and line.startswith("#!"):
+                    continue
+                if _JAX_TREE.search(code):
+                    offenders.append(f"{os.path.relpath(path, ROOT)}:{no}")
+    assert not offenders, offenders

@@ -297,22 +297,61 @@ def test_phase_kernels_need_cuda_tensors():
     assert poisson_cuda.snapshot()["launches"] == before
 
 
-def test_each_thread_keeps_one_stream(monkeypatch):
-    """thread_stream hands a thread the same stream on every call, whether
-    the device names its index or not, and another thread another stream
-    (the stream maker, `own_stream`, stood in for by a recorder, as this
-    machine has no card)."""
+def fresh_pool(monkeypatch, maker=None):
+    """A new stream pool and thread locals for one test, with `own_stream`
+    stood in for by `maker` (the tests run without a card)."""
     import threading
 
-    made = []
+    pool = poisson_cuda.StreamPool()
+    monkeypatch.setattr(poisson_cuda, "_pool", pool)
+    monkeypatch.setattr(poisson_cuda, "_tls", threading.local())
+    if maker is not None:
+        monkeypatch.setattr(poisson_cuda, "own_stream", maker)
+    return pool
 
-    class Recorder:
-        def __init__(self, device):
-            self.device = torch.device(device)
+
+class Recorder:
+    """A stand-in stream: its device and the order it was made in."""
+
+    def __init__(self, device, made=None):
+        self.device = torch.device(device)
+        self.cuda_stream = 0x1000 + (len(made) if made is not None else 0)
+        if made is not None:
             made.append(self)
 
-    monkeypatch.setattr(poisson_cuda, "_tls", threading.local())
-    monkeypatch.setattr(poisson_cuda, "own_stream", Recorder)
+
+def recorder_maker():
+    made = []
+    return made, lambda device: Recorder(device, made)
+
+
+def run_pool(workers, fn, barrier=True):
+    """fn(k) in a pool of `workers` threads, every worker alive at once
+    (each waits at a barrier before it returns); the results in order."""
+    import concurrent.futures as cf
+    import threading
+
+    ready = threading.Barrier(workers)
+
+    def task(k):
+        out = fn(k)
+        if barrier:
+            ready.wait(timeout=30)
+        return out
+
+    with cf.ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(task, range(workers)))
+
+
+def test_each_thread_keeps_one_stream(monkeypatch):
+    """thread_stream hands a thread the same stream on every call, whether
+    the device names its index or not, and another thread alive at the
+    same time another stream (the stream maker, `own_stream`, stood in for
+    by a recorder, as the tests run without a card)."""
+    import threading
+
+    made, maker = recorder_maker()
+    fresh_pool(monkeypatch, maker)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     mine = [poisson_cuda.thread_stream(d)
             for d in (torch.device("cuda"), "cuda", "cuda:0",
@@ -327,6 +366,186 @@ def test_each_thread_keeps_one_stream(monkeypatch):
     assert not worker.is_alive()
     assert all(s is other[0] for s in other) and other[0] is not mine[0]
     assert len(made) == 2
+
+
+def test_successive_pools_reuse_their_streams(monkeypatch):
+    """The engine makes a new pool per batch and per level: 10 successive
+    pools of 8 threads, all 8 alive at once in each, make 8 streams, and
+    every pool after the first sends on the first pool's streams."""
+    made, maker = recorder_maker()
+    pool = fresh_pool(monkeypatch, maker)
+    handed = [run_pool(8, lambda k: poisson_cuda.thread_stream("cuda:0"))
+              for _ in range(10)]
+    assert len(made) == 8
+    assert all(len(set(map(id, h))) == 8 for h in handed)
+    assert all(set(map(id, h)) == set(map(id, made)) for h in handed)
+    assert pool.stats() == {"made": 8, "held": 0, "peak_held": 8,
+                            "free": 8}
+    records = [{"thread": f"pool{p}_{k}", "device": "cuda:0",
+                "stream": s.cuda_stream, "t0": 10.0 * p + k * 0.1,
+                "t1": 10.0 * p + 5} for p, h in enumerate(handed)
+               for k, s in enumerate(h)]
+    assert poisson_cuda.stream_sharing_faults(records) == []
+
+
+def test_pools_alive_at_once_get_disjoint_streams(monkeypatch):
+    """Two pools whose threads are all alive at once (16 threads at one
+    barrier) hold 16 different streams."""
+    import threading
+
+    made, maker = recorder_maker()
+    fresh_pool(monkeypatch, maker)
+    ready = threading.Barrier(16)
+
+    def send(k):
+        stream = poisson_cuda.thread_stream("cuda:0")
+        ready.wait(timeout=30)
+        return stream
+
+    results = {}
+
+    def pool(name):
+        results[name] = run_pool(8, send, barrier=False)
+
+    runners = [threading.Thread(target=pool, args=(n,)) for n in "ab"]
+    for t in runners:
+        t.start()
+    for t in runners:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    a, b = (set(map(id, results[n])) for n in "ab")
+    assert len(a) == len(b) == 8 and not a & b
+    assert len(made) == 16
+
+
+def test_a_thread_keeps_its_stream_on_each_device(monkeypatch):
+    """A thread that sends on cuda:1 after cuda:0 holds both streams and
+    drops neither; both go back to the pool when it ends, each on its own
+    device's free list."""
+    import threading
+
+    made, maker = recorder_maker()
+    pool = fresh_pool(monkeypatch, maker)
+    seen = []
+
+    def send():
+        for d in ("cuda:0", "cuda:1", "cuda:0", "cuda:1"):
+            seen.append(poisson_cuda.thread_stream(d))
+
+    worker = threading.Thread(target=send)
+    worker.start()
+    worker.join(timeout=30)
+    assert not worker.is_alive()
+    assert seen[0] is seen[2] and seen[1] is seen[3]
+    assert [s.device.index for s in seen[:2]] == [0, 1]
+    assert len(made) == 2
+    assert pool.stats() == {"made": 2, "held": 0, "peak_held": 2,
+                            "free": 2}
+    again = [poisson_cuda.thread_stream(d) for d in ("cuda:1", "cuda:0")]
+    assert again[0] is seen[1] and again[1] is seen[0]
+    assert len(made) == 2
+
+
+def test_a_thread_that_raises_gives_its_stream_back(monkeypatch):
+    """A thread whose range raises after it took its stream (here: no card
+    for the copy to the device) still gives the stream back when it ends,
+    and the next thread sends on it."""
+    import threading
+
+    made, maker = recorder_maker()
+    pool = fresh_pool(monkeypatch, maker)
+    errors, streams = [], []
+
+    def send():
+        try:
+            poisson_cuda.range_mask_cuda(sorted_uniform(4096, 3), 2.0,
+                                         device="cuda:0")
+        except Exception as exc:  # the range fails part way
+            errors.append(exc)
+        streams.append(poisson_cuda.thread_stream("cuda:0"))
+
+    for _ in range(3):
+        worker = threading.Thread(target=send)
+        worker.start()
+        worker.join(timeout=30)
+        assert not worker.is_alive()
+    assert len(errors) == 3
+    assert len(made) == 1 and all(s is made[0] for s in streams)
+    assert pool.stats() == {"made": 1, "held": 0, "peak_held": 1,
+                            "free": 1}
+
+
+def test_an_ended_thread_gives_its_stream_back_before_its_locals_go(
+        monkeypatch):
+    """Should a thread's locals outlive its join() (CPython may clear them
+    later), the next thread to ask still gets the ended thread's stream:
+    take() reclaims the streams of holders whose thread is no longer alive,
+    and the holder's own give-back later returns nothing twice."""
+    import threading
+
+    made, maker = recorder_maker()
+    pool = fresh_pool(monkeypatch, maker)
+    kept = []
+
+    def send():
+        poisson_cuda.thread_stream("cuda:0")
+        kept.append(poisson_cuda._tls.streams)  # outlives the thread
+
+    worker = threading.Thread(target=send)
+    worker.start()
+    worker.join(timeout=30)
+    assert not worker.is_alive()
+    assert pool.stats() == {"made": 1, "held": 1, "peak_held": 1,
+                            "free": 0}
+    mine = poisson_cuda.thread_stream("cuda:0")
+    assert mine is made[0] and len(made) == 1
+    assert kept[0].streams == {}
+    kept.clear()  # the holder dies: nothing left to give back
+    assert pool.stats() == {"made": 1, "held": 1, "peak_held": 1,
+                            "free": 0}
+
+
+def test_peak_live_senders_reads_the_trace():
+    """The lower bound on sending threads alive at once: a pool's workers
+    live to its last range, the main thread to the end, other threads to
+    their own last range; a thread that starts as another ends does not
+    overlap it."""
+    def rec(thread, t0, t1):
+        return {"thread": thread, "t0": t0, "t1": t1}
+
+    pool_a = [rec(f"ThreadPoolExecutor-0_{k}", k, k + 0.5)
+              for k in range(4)]
+    assert poisson_cuda.peak_live_senders(pool_a) == 4
+    pool_b = [rec(f"ThreadPoolExecutor-1_{k}", 10 + k, 10.5 + k)
+              for k in range(3)]
+    assert poisson_cuda.peak_live_senders(pool_a + pool_b) == 4
+    main = [rec("MainThread", 5, 6)]
+    assert poisson_cuda.peak_live_senders(pool_a + main + pool_b) == 4
+    assert poisson_cuda.peak_live_senders(main + pool_b) == 4
+    others = [rec("s0", 0, 1), rec("s1", 1, 2), rec("s2", 1.5, 3)]
+    assert poisson_cuda.peak_live_senders(others) == 2
+    assert poisson_cuda.peak_live_senders([]) == 0
+
+
+def test_stream_sharing_faults_reads_the_trace():
+    """The trace check itself: a thread on two streams of one device, and
+    two threads whose spans on one stream overlap, are faults; threads
+    that follow one another on a stream, and one thread on two devices,
+    are not."""
+    def rec(thread, stream, t0, t1, device="cuda:0"):
+        return {"thread": thread, "device": device, "stream": stream,
+                "t0": t0, "t1": t1}
+
+    assert poisson_cuda.stream_sharing_faults(
+        [rec("a", 1, 0, 1), rec("a", 1, 2, 3), rec("b", 1, 3, 4),
+         rec("a", 2, 0, 1, "cuda:1"), rec("c", 3, 0, 9)]) == []
+    faults = poisson_cuda.stream_sharing_faults(
+        [rec("a", 1, 0, 1), rec("a", 2, 2, 3)])
+    assert faults == ["thread a ran ranges on 2 streams of cuda:0"]
+    # b's range falls between two of a's: a held the stream throughout
+    faults = poisson_cuda.stream_sharing_faults(
+        [rec("a", 1, 0, 1), rec("b", 1, 2, 3), rec("a", 1, 4, 5)])
+    assert faults == ["threads a and b held stream 0x1 at once"]
 
 
 def test_thread_stream_needs_a_cuda_device():
@@ -355,12 +574,13 @@ class _FakeStreamLib:
 
 
 def test_each_thread_gets_a_stream_made_for_it(monkeypatch):
-    """Each thread's stream comes from the stream maker outside PyTorch's
-    pool (poisson_stream_create, wrapped as an ExternalStream on the
-    thread's device), once per thread: 8 threads alive at once get 8
-    handles, a thread's later calls its own, and a thread that moves to
-    another device a new one. No handle is made twice, so none can reach
-    two threads."""
+    """Each stream comes from the stream maker outside PyTorch's pool
+    (poisson_stream_create, wrapped as an ExternalStream on the thread's
+    device), only when the pool has none free: 8 threads alive at once get
+    8 handles, a thread's later calls its own; once they have ended, a
+    thread takes one of theirs on that device and a new one on another
+    device, keeping both. No handle is made twice, so none names two
+    streams."""
     import contextlib
     import threading
 
@@ -372,7 +592,7 @@ def test_each_thread_gets_a_stream_made_for_it(monkeypatch):
         def __init__(self, handle, device):
             self.cuda_stream, self.device = handle, device
 
-    monkeypatch.setattr(poisson_cuda, "_tls", threading.local())
+    fresh_pool(monkeypatch)
     monkeypatch.setattr(_cuda_build, "load_kernel_library", lambda name: lib)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
@@ -394,6 +614,8 @@ def test_each_thread_gets_a_stream_made_for_it(monkeypatch):
     assert sorted(handles) == lib.made and len(set(handles)) == 8
     first = poisson_cuda.thread_stream("cuda:0")
     assert first.device == torch.device("cuda", 0)
+    assert first.cuda_stream in handles
     moved = poisson_cuda.thread_stream("cuda:1")
     assert moved.device == torch.device("cuda", 1)
-    assert len(set(lib.made)) == len(lib.made) == 10
+    assert poisson_cuda.thread_stream("cuda:0") is first
+    assert len(set(lib.made)) == len(lib.made) == 9
