@@ -1,0 +1,261 @@
+#!/usr/bin/env python3
+"""Where the MIN_DISTANCE device path's host time goes, on the input of a
+MIN_DISTANCE cell of BENCHMARK.json (md_10M_terrain_3dtiles by default),
+and that cell's tiler run in two checkouts side by side.
+
+    python3 bench_k2_path.py [--cell C] [--threads 1,2,4,8,default]
+        [--parent DIR] [--pairs N] [--rehearse]
+
+Run from the root of a checkout on a machine with the cell's cards (four
+for md_10M_multichip4, one for the others). Steps:
+
+  1. the cell's input drawn from its manifest's seed (bench_torch
+     .write_inputs) into .bench_k2_path_work/ (emptied before, removed
+     after) and checked against the manifest; the kernels built in each
+     checkout;
+  2. the host run (--use-device host) of this checkout, a reading;
+  3. for each --threads value, one CLI run of this checkout on the card in
+     a fresh process with K2's range trace on (ops/poisson_cuda.trace):
+     per part of a range (upload, prep, kernel, download), summed over the
+     ranges, the stream time (CUDA events), the sending thread's wall time
+     and its CPU time; the sending threads' summed wall; the allocations
+     the run made (torch.cuda.memory_stats: device segments and requests;
+     torch.cuda.host_memory_stats: pinned blocks made) and, where the
+     checkout has them, the workspaces' peaks;
+  4. with --parent DIR (another checkout, e.g. the parent commit unpacked
+     with git archive): one traced run of it at the default threads, then
+     N pairs of untraced runs, in the order parent, this, this, parent:
+     TilerProcess.run's seconds (properties.json) and the process's wall.
+
+Every run's tree is held against the cell's manifest (benchmark_torch/);
+a run that exits non-zero or writes another tree fails the command. The
+last line of standard output is one JSON object. --rehearse runs steps
+1-4 on the CPU (--use-device cpu, the rehearsal input of bench_torch.py,
+no range reaches the card) to check the plumbing; its numbers are no
+device's.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+import bench_torch as bt
+
+CELLS = ("md_10M_terrain_3dtiles", "md_30M_3tiles_fast",
+         "md_10M_multichip4")
+WORK = os.path.join(bt.ROOT, ".bench_k2_path_work")
+PARTS = ("upload", "prep", "kernel", "download")
+DEVICE_STATS = ("segment.all.allocated", "allocation.all.allocated",
+                "reserved_bytes.all.peak", "num_alloc_retries")
+HOST_STATS = ("num_host_alloc", "allocations.allocated",
+              "allocated_bytes.peak")
+
+
+# -- one CLI run in a fresh process ---------------------------------------------
+
+def child(argv) -> int:
+    """`run`: cli.main of the checkout at --root on the arguments after
+    `--`, with K2's range trace on under --trace; writes what it read to
+    --result."""
+    ap = argparse.ArgumentParser(prog="bench_k2_path.py run")
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--result", required=True)
+    ap.add_argument("--trace", action="store_true")
+    ap.add_argument("cli", nargs=argparse.REMAINDER)
+    args = ap.parse_args(argv)
+    cli_args = args.cli[1:] if args.cli[:1] == ["--"] else args.cli
+    sys.path.insert(0, args.root)
+
+    import torch
+
+    from schwarzwald_tpu_torch import cli
+    from schwarzwald_tpu_torch.ops import poisson_cuda
+
+    poisson_cuda.reset_counters()
+    if args.trace:
+        poisson_cuda.trace = []
+    t0 = time.perf_counter()
+    rc = cli.main(cli_args)
+    seconds = time.perf_counter() - t0
+    ranges, poisson_cuda.trace = poisson_cuda.trace or [], None
+    out = {"rc": rc, "main_s": seconds, "k2": poisson_cuda.snapshot(),
+           "prep_launches": getattr(poisson_cuda, "prep_launches", None),
+           "ranges": len(ranges)}
+    for part in PARTS:
+        for kind in ("", "host_", "cpu_"):
+            key = f"{kind}{part}_ms"
+            out[key] = sum(r.get(key, 0.0) for r in ranges)
+    out["sender_wall_ms"] = sum((r["t1"] - r["t0"]) * 1e3 for r in ranges)
+    out["wait_ms"] = sum(r.get("wait_ms", 0.0) for r in ranges)
+    out["threads"] = len({r["thread"] for r in ranges})
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        stats = torch.cuda.memory_stats()
+        out["device"] = {k: stats.get(k) for k in DEVICE_STATS}
+        host = getattr(torch.cuda, "host_memory_stats", None)
+        if host is not None:
+            stats = host()
+            out["pinned"] = {k: stats.get(k) for k in HOST_STATS}
+        out["streams"] = poisson_cuda.stream_stats()
+        ws = getattr(poisson_cuda, "workspace_stats", None)
+        if ws is not None:
+            out["workspaces"] = ws()
+    with open(args.result, "w") as f:
+        json.dump(out, f)
+    return int(rc or 0)
+
+
+def build(root: str, rehearse: bool) -> None:
+    """The kernels of the checkout at `root`, built in a process of their
+    own (so the runs find them up to date)."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from schwarzwald_tpu_torch import native; native._lib()")
+    if not rehearse:
+        code += ("; from schwarzwald_tpu_torch.ops._cuda_build import "
+                 "load_kernel_library as k; k('poisson'); k('morton')")
+    subprocess.run([sys.executable, "-c", code, root], check=True, cwd=root)
+
+
+def run(work: str, root: str, cli_args: list, trace: bool, manifest: dict,
+        label: str) -> dict:
+    """One CLI run of the checkout at `root` in a fresh process; its tree
+    held against the manifest."""
+    out_dir = os.path.join(work, "out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    result = os.path.join(work, "result.json")
+    log = os.path.join(work, "run.log")
+    cmd = [sys.executable, os.path.abspath(__file__), "run", "--root", root,
+           "--result", result, *(["--trace"] if trace else []), "--",
+           "--tiler", *cli_args, "-o", out_dir]
+    env = dict(os.environ, SCHWARZWALD_TPU_NO_UI="1", PYTHONPATH=root)
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run(cmd, cwd=root, env=env, stdout=f,
+                              stderr=subprocess.STDOUT,
+                              timeout=bt.RUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: exit {proc.returncode}: "
+                           f"{bt.log_tail(log)}")
+    with open(result) as f:
+        got = json.load(f)
+    got.update(label=label, wall_s=wall, tile_s=bt.tile_seconds(out_dir),
+               files=bt.compare_tree(out_dir, manifest["tree"]))
+    return got
+
+
+def describe(r: dict) -> str:
+    text = (f"{r['label']}: wall {r['wall_s']:.3f} s, TilerProcess.run "
+            f"{r['tile_s']:.3f} s, tree identical ({r['files']} files)")
+    if not r["ranges"]:
+        return text
+    split = "; ".join(f"{p} {r[f'{p}_ms']:.1f} / {r[f'host_{p}_ms']:.1f} / "
+                      f"{r[f'cpu_{p}_ms']:.1f}" for p in PARTS)
+    text += (f"\n  {r['ranges']} ranges from {r['threads']} threads, K2 "
+             f"launches {r['k2']['launches']}, prep launches "
+             f"{r['prep_launches']}; per part, stream / wall / CPU ms "
+             f"summed: {split}; final synchronise {r['wait_ms']:.1f}; "
+             f"sending threads' wall {r['sender_wall_ms']:.1f} ms")
+    for key in ("device", "pinned", "workspaces", "streams"):
+        if key in r:
+            text += f"\n  {key}: {r[key]}"
+    return text
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["run"]:
+        return child(argv[1:])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cell", default=CELLS[0], choices=CELLS)
+    ap.add_argument("--threads", default="1,2,4,8,default")
+    ap.add_argument("--parent", default=None)
+    ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--rehearse", action="store_true")
+    args = ap.parse_args(argv)
+    work = WORK
+    rehearse = args.rehearse
+    if not rehearse:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("bench_k2_path: FAIL: no CUDA card", file=sys.stderr)
+            return 1
+        print(bt.nvidia_smi(), flush=True)
+    cell = {c["name"]: c for c in bt.load_benchmark()["workloads"]}[
+        args.cell]
+    with open(bt.manifest_path(args.cell, rehearse)) as f:
+        seed = json.load(f)["seed"]
+    manifest = bt.load_manifest(args.cell, seed, rehearse)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    roots = {"this": bt.ROOT}
+    if args.parent:
+        roots["parent"] = os.path.abspath(args.parent)
+    try:
+        t0 = time.perf_counter()
+        for root in roots.values():
+            build(root, rehearse)
+        paths, points, _ = bt.write_inputs(cell["traffic"], seed,
+                                           os.path.join(work, "input"),
+                                           rehearse)
+        drawn = {os.path.basename(p): bt.file_digest(p) for p in paths}
+        if drawn != manifest["input"]:
+            raise RuntimeError("the input drawn is not the reference's")
+        print(f"built and drawn in {time.perf_counter() - t0:.1f} s: "
+              f"{points} points", flush=True)
+        flags = ["-i", paths[0], *bt.config_argv(cell["config"],
+                                                 cell["traffic"], rehearse)]
+        device = ["--use-device", "cpu" if rehearse else "cuda"]
+        runs = [run(work, bt.ROOT, flags + ["--use-device", "host"], False,
+                    manifest, "host")]
+        print(describe(runs[-1]), flush=True)
+        for t in args.threads.split(","):
+            extra = [] if t == "default" else ["--threads", t]
+            runs.append(run(work, bt.ROOT, flags + device + extra, True,
+                            manifest, f"this, traced, threads {t}"))
+            print(describe(runs[-1]), flush=True)
+        if args.parent:
+            runs.append(run(work, roots["parent"], flags + device, True,
+                            manifest, "parent, traced, threads default"))
+            print(describe(runs[-1]), flush=True)
+            for i in range(args.pairs):
+                for name in ("parent", "this", "this", "parent"):
+                    runs.append(run(work, roots[name], flags + device, False,
+                                    manifest, f"{name}, timed, pair {i}"))
+                    print(describe(runs[-1]), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary = {"points": points, "runs": runs}
+    timed = {}
+    for r in runs:
+        if ", timed" in r["label"]:
+            timed.setdefault(r["label"].split(",")[0], []).append(r)
+    for name, rs in timed.items():
+        summary[f"{name}_tile_s_median"] = statistics.median(
+            r["tile_s"] for r in rs)
+        summary[f"{name}_wall_s_median"] = statistics.median(
+            r["wall_s"] for r in rs)
+        summary[f"{name}_points_per_s_median"] = statistics.median(
+            points / r["wall_s"] for r in rs)
+    if len(timed) == 2:
+        summary["this_over_parent_points_per_s"] = (
+            summary["this_points_per_s_median"]
+            / summary["parent_points_per_s_median"])
+        print(f"medians: parent {summary['parent_points_per_s_median']:.0f}"
+              f" points/s (TilerProcess.run "
+              f"{summary['parent_tile_s_median']:.3f} s), this "
+              f"{summary['this_points_per_s_median']:.0f} points/s "
+              f"({summary['this_tile_s_median']:.3f} s): this / parent "
+              f"{summary['this_over_parent_points_per_s']:.4f}", flush=True)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

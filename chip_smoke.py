@@ -16,8 +16,10 @@ each phase prints its seconds:
      a dense range at the pair gate's edge that runs window by window) in
      both precision modes, and the main path's root-shaped range of
      5,490,148 points in f64 (the plain version skipped there for time);
-     the pair CSR built on the card against the host's; every f64 mask
-     also against the native host kernel; per case the kernel's time with
+     K2's prep kernels (planes, AABBs, pair CSR, gate) on the same ranges
+     against their plain version (pair_csr_torch, _masked), both timed
+     with the prep's bound, and their pair CSR against the host's; every
+     f64 mask also against the native host kernel; per case the kernel's time with
      phase A and phase B apart, its bounds (bytes, and the close pairs'
      distance tests) and its share of each, and the peak scratch. K1
      (Morton interleave) on 10M and 10,000,001 random coordinates with
@@ -28,10 +30,13 @@ each phase prints its seconds:
      spacing = diagonal/250) with use_device="cuda" and "host"; the trees
      must be byte-identical (properties.json up to its two timing fields),
      every tile must hold finite positions, the tiles must hold at least
-     every input point, and K2 must have been launched. Each device range's
-     time is split into upload, prep (AABBs and pair CSR), phase A + B and
-     download, each as stream time and as the sending thread's wall and
-     CPU time; no two sending threads alive at once may share a stream
+     every input point, and K2 and the prep kernels must have been launched
+     (two prep launches per range sent). Each device range's time is split
+     into upload, prep (the prep kernels), phase A + B and download, each
+     as stream time and as the sending thread's wall and CPU time; the
+     device segments and pinned blocks the run made and the workspaces'
+     memory are printed; no two sending threads alive at once may share a
+     stream
      (each thread's ranges on one stream per device, no overlap of two
      threads' spans on one stream in the trace), the streams made in the
      process may not exceed the sending threads alive at once, and the
@@ -70,17 +75,19 @@ each phase prints its seconds:
      and on the host runs' trees, byte for byte: the ENTWINE_LAZ tree to
      3D Tiles, phase 3's 3D Tiles tree to LAZ and to LAS at --max-depth 4,
      with each conversion's points per second;
-  8. the sanitizers: the kernels' checker (ops/sanitize_kernels.py: K2 on
-     six phase 2 cases in both modes, one of them from 8 threads at once,
-     and K1 at 10,000,001 points, each against its plain version) run with
-     every torch.empty poisoned, then under compute-sanitizer's memcheck,
+  8. the sanitizers: the kernels' checker (ops/sanitize_kernels.py: the
+     prep kernels and K2 on six phase 2 cases in both modes, one of them
+     from 8 threads at once, the prep at and one past the pair gate with a
+     guard after pair_bj, and K1 at 10,000,001 points, each against its
+     plain version) run with every torch.empty poisoned, then under compute-sanitizer's memcheck,
      racecheck, synccheck and initcheck (each in its own process, limited
-     to K1's and K2's kernels, with its own timeout), after a self-check
+     to K1's, K2's and the prep's kernels, with its own timeout), after a
+     self-check
      that learns whether the tool supports the card; a tool that refuses
      the card is reported, any other error or a timeout fails;
-  9. the summary: one JSON line for the kernels (with each kernel's
-     launches on every path that ran it and the sanitizers' results), then
-     the result line.
+  9. the summary: one JSON line for the kernels, K1, K2 and K2's prep
+     (with each kernel's launches on every path that ran it and the
+     sanitizers' results), then the result line.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -282,11 +289,77 @@ def kernel_runs(fn, reps: int = 3):
     return out, ms, phases, stats, scratch
 
 
+def prep_bound(n: int, n_blocks: int, n_cross: int, elt: int,
+               analyze: bool) -> dict:
+    """The least time of the prep kernels on one range: the bytes (the
+    float64 positions and the analyze bytes in; the planes, the pair CSR
+    and its row pointers out) over the memory rate, and the box tests
+    (n_blocks^2 / 2 of them, 6 comparisons each) over the f64 peak."""
+    n_bytes = (24 + analyze) * n + 3 * elt * n + 4 * (n_cross + n_blocks + 1)
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 6 * n_blocks * (n_blocks - 1) / 2 / PEAK_FLOPS["f64"] * 1e3
+    return {"bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms > op_ms else "operations"}
+
+
+def check_prep_kernel(name, precision, pos, analyze, spacing, report):
+    """The prep kernels (poisson_cuda.range_prep) against their plain
+    version (prep_torch: pair_csr_torch and _masked) on the card, equal
+    element for element; the kernels timed as the range path runs them,
+    into a workspace's buffers, and the plain version beside them. Returns
+    the kernels' pair CSR."""
+    import torch
+
+    from schwarzwald_tpu_torch.ops import poisson_cuda
+    from schwarzwald_tpu_torch.ops.sanitize_kernels import prep_mismatch
+
+    dev = torch.device("cuda")
+    p_t = torch.from_numpy(pos).to(dev)
+    a_t = (None if analyze is None
+           else torch.from_numpy(analyze.astype("uint8")).to(dev))
+    n = p_t.shape[0]
+    got = poisson_cuda.range_prep(p_t, a_t, spacing, precision)
+    want, plain_ms = median_ms(lambda: poisson_cuda.prep_torch(
+        p_t, a_t, spacing, precision), reps=1)
+    bad = prep_mismatch(got, want)
+    if bad:
+        raise RuntimeError(f"{name} {precision}: the prep kernels' {bad} "
+                           f"differs from the plain version")
+    gate, n_cross = want[3].tolist()
+    nb = want[1].numel() - 1
+    buf = poisson_cuda._Workspace(dev, counted=False).arrays(
+        n, precision, a_t is not None)
+    before = poisson_cuda.prep_launches
+    per_window = 5 if n > 2_000_000 else 20
+    _, ms = event_ms(lambda: poisson_cuda._prep(
+        p_t.view(-1), a_t, n, nb, spacing, precision, buf),
+        launches=per_window)
+    launched = poisson_cuda.prep_launches - before
+    if launched != 2 * (1 + 3 * per_window):  # event_ms: warm-up, 3 x
+        raise RuntimeError(f"{name}: {launched} prep launches counted")
+    if not torch.equal(buf.ptr, got[1]):
+        raise RuntimeError(f"{name} {precision}: the prep kernels' pair_ptr "
+                           f"differs between two runs")
+    b = prep_bound(n, nb, n_cross, got[0].element_size(), a_t is not None)
+    print(f"kernel prep {name} {precision}: n={n} blocks={nb} "
+          f"n_cross={n_cross} gate={gate} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f}; bound {b['bound_ms']:.6f} ms by "
+          f"{b['bound_by']}, the kernels at {100 * b['bound_ms'] / ms:.2f}% "
+          f"of it; 2 launches a call", flush=True)
+    if precision == "f64" and name in (TIMING_CASE, "root_5490148"):
+        report.setdefault("cases", {})[name] = {
+            "ms": ms, "plain_ms": plain_ms, **b}
+    if name == TIMING_CASE and precision == "f64":
+        report.update(ms=ms, plain_ms=plain_ms, **b)
+    report["max_abs_err"] = 0
+    return got[1], got[2][:n_cross]
+
+
 def phase_poisson_kernel(report: dict) -> None:
     """K2 vs its plain version (and vs native in f64) on the card, with
-    the pair CSR built on the card against the host's, and phase A and
-    phase B each against its plain version on the ranges of up to 262,144
-    points."""
+    the prep kernels against theirs and their pair CSR against the host's,
+    and phase A and phase B each against its plain version on the ranges
+    of up to 262,144 points."""
     import numpy as np
     import torch
 
@@ -310,9 +383,8 @@ def phase_poisson_kernel(report: dict) -> None:
             planes = torch.from_numpy(p.planes).to(dev)
             ana = (None if p.analyze is None
                    else torch.from_numpy(p.analyze).to(dev))
-            ptr, bj = poisson_cuda.pair_csr_torch(
-                planes, poisson_cuda.inflation(spacing),
-                poisson_cuda.MAX_PAIRS_PER_BLOCK * p.n_blocks)
+            ptr, bj = check_prep_kernel(name, precision, pos, analyze,
+                                        spacing, report["prep"])
             if not (np.array_equal(ptr.cpu().numpy(), p.pair_ptr)
                     and np.array_equal(bj.cpu().numpy(), p.pair_bj)):
                 raise RuntimeError(f"{name} {precision}: the pair CSR built "
@@ -497,6 +569,16 @@ def write_uniform_las(path: str, n: int) -> None:
                   AABB([0.0] * 3, [1000.0] * 3))
 
 
+def memory_counts() -> dict:
+    """Device segments (cudaMalloc calls of the caching allocator) and
+    pinned host blocks made so far in this process."""
+    import torch
+
+    host = torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+    return {"segments": torch.cuda.memory_stats().get(
+        "segment.all.allocated", 0), "pinned": host}
+
+
 def check_streams(label: str, ranges: list) -> dict:
     """Print and check how the sending threads held their streams: no two
     threads alive at once on one stream, one stream per thread and device,
@@ -552,6 +634,7 @@ def phase_min_distance(work: str, report: dict, card: str) -> None:
         # where the device run's time goes: each device range's stream
         # time in four parts (CUDA events on the range's own stream)
         poisson_cuda.trace = []
+        allocs = memory_counts()
         poisson_cuda.reset_counters()
         t0 = time.perf_counter()
         try:
@@ -559,20 +642,33 @@ def phase_min_distance(work: str, report: dict, card: str) -> None:
         finally:
             seconds = time.perf_counter() - t0
             counts = poisson_cuda.snapshot()
+            prep_launches = poisson_cuda.prep_launches
             ranges, poisson_cuda.trace = poisson_cuda.trace, None
         rates[mode] = MAIN_PATH_POINTS / seconds
         print(f"main path {mode}: {seconds:.2f} s, "
-              f"{rates[mode]:.0f} points/s on {card}; counters {counts}",
-              flush=True)
+              f"{rates[mode]:.0f} points/s on {card}; counters {counts}, "
+              f"prep launches {prep_launches}", flush=True)
         if mode == "host":
-            if counts["launches"] or ranges:
+            if counts["launches"] or prep_launches or ranges:
                 raise RuntimeError("the host run launched the kernels")
             continue
         report["launches"] = counts["launches"]
         report["launches_by_path"]["3 MIN_DISTANCE main path"] = \
             counts["launches"]
+        report["prep"]["launches"] = prep_launches
+        report["prep"]["launches_by_path"]["3 MIN_DISTANCE main path"] = \
+            prep_launches
         if counts["launches"] <= 0 or not ranges:
             raise RuntimeError("the main path launched no Poisson kernel")
+        if prep_launches != 2 * (len(ranges) + counts["pair_gate"]):
+            raise RuntimeError(f"the main path launched the prep kernels "
+                               f"{prep_launches} times for {len(ranges)} "
+                               f"device ranges and {counts['pair_gate']} "
+                               f"past the gate")
+        made = {k: v - allocs[k] for k, v in memory_counts().items()}
+        print(f"main path cuda: the run made {made['segments']} device "
+              f"segments and {made['pinned']} pinned blocks; workspaces "
+              f"{poisson_cuda.workspace_stats()}", flush=True)
         sizes = sorted(r["n"] for r in ranges)
         largest = max(ranges, key=lambda r: r["n"])
         print(f"main path cuda: {len(ranges)} device ranges, {sum(sizes)} "
@@ -666,6 +762,8 @@ def phase_batched_min_distance(work: str, report: dict, card: str) -> None:
             continue
         report["launches_by_path"]["3b MIN_DISTANCE in 4 batches"] = \
             counts["launches"]
+        report["prep"]["launches_by_path"]["3b MIN_DISTANCE in 4 batches"] = \
+            poisson_cuda.prep_launches
         if counts["launches"] <= 0 or not ranges:
             raise RuntimeError("the batched run launched no Poisson kernel")
         print("batched cuda: at the start, after each batch and after the "
@@ -997,6 +1095,9 @@ def phase_multichip(work: str, k1: dict, k2: dict, card: str) -> None:
         if label == "multichip":
             k2["launches_by_path"][f"6 MIN_DISTANCE --multichip {SHARDS}"] = \
                 counts["launches"]
+            k2["prep"]["launches_by_path"][
+                f"6 MIN_DISTANCE --multichip {SHARDS}"] = \
+                poisson_cuda.prep_launches
             if stats["shards"] != SHARDS or stats["cards"] < 1:
                 raise RuntimeError(f"the run had {stats['shards']} shards "
                                    f"on {stats['cards']} cards")
@@ -1140,6 +1241,8 @@ def phase_sinks_and_converter(work: str, k2: dict, card: str) -> None:
         if mode == "cuda":
             k2["launches_by_path"]["7 ENTWINE_LAZ MIN_DISTANCE"] = \
                 counts["launches"]
+            k2["prep"]["launches_by_path"]["7 ENTWINE_LAZ MIN_DISTANCE"] = \
+                poisson_cuda.prep_launches
             if counts["launches"] <= 0:
                 raise RuntimeError("the ENTWINE_LAZ cuda run launched no K2")
         elif counts["launches"]:
@@ -1214,7 +1317,8 @@ def phase_sinks_and_converter(work: str, k2: dict, card: str) -> None:
 # -- phase 8: the kernels under compute-sanitizer ------------------------------
 
 SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
-SANITIZED_KERNELS = "kns=interleave_kernel|close_kernel|decide_kernel"
+SANITIZED_KERNELS = ("kns=interleave_kernel|close_kernel|decide_kernel|"
+                     "prep_blocks_kernel|prep_pairs_kernel")
 SANITIZER_TIMEOUT_S = 300
 REFUSED = "Device not supported"
 
@@ -1258,7 +1362,7 @@ def phase_sanitizers(k1: dict, k2: dict) -> None:
 
     rc, seconds, out = run_checker([], ["--poison"], SANITIZER_TIMEOUT_S)
     for line in out.splitlines():
-        if line.startswith(("K1 ", "K2 ", "sanitize_kernels")):
+        if line.startswith(("K1 ", "K2 ", "prep ", "sanitize_kernels")):
             print(f"  poisoned: {line}", flush=True)
     if rc != 0:
         raise RuntimeError(f"the poisoned checker failed (exit code {rc}): "
@@ -1300,7 +1404,7 @@ def phase_sanitizers(k1: dict, k2: dict) -> None:
                 raise RuntimeError(f"{t} failed (exit code {rc}): "
                                    f"{out[-3000:]}")
             results[t] = f"{errors} in {seconds:.1f} s"
-    k1["sanitizers"] = k2["sanitizers"] = results
+    k1["sanitizers"] = k2["sanitizers"] = k2["prep"]["sanitizers"] = results
 
 
 # -- main --------------------------------------------------------------------------
@@ -1348,8 +1452,15 @@ def main() -> int:
           "replaces": "schwarzwald_tpu/ops/device.py:217",
           "library_ms": None, "at": f"n={K1_SIZES[0]}",
           "launches_by_path": {}}
+    # port-only: the JAX package preps a range on the host (no Pallas
+    # kernel); no single PyTorch call computes it either
+    k2["prep"] = {"name": "poisson_prep", "route": "cuda",
+                  "source": "schwarzwald_tpu_torch/csrc/poisson.cu",
+                  "replaces": "schwarzwald_tpu/ops/poisson_pallas.py:62",
+                  "library_ms": None, "at": f"{TIMING_CASE} f64",
+                  "launches_by_path": {}}
     timed_phase("1 build", phase_build)
-    timed_phase("2 K2 vs plain", phase_poisson_kernel, k2)
+    timed_phase("2 K2 and the prep vs plain", phase_poisson_kernel, k2)
     timed_phase("2 K1 vs plain", phase_morton_kernel, k1)
 
     work = os.path.join(ROOT, ".chip_smoke_work")
@@ -1373,9 +1484,12 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "at", "launches_by_path", "sanitizers")
-    kernels = [{k: r[k] for k in keys} for r in (k1, k2)]
+    prep = k2.pop("prep")
+    kernels = [{k: r[k] for k in keys} for r in (k1, k2, prep)]
     kernels[1].update({k: k2[k] for k in ("phase_a_ms", "phase_b_ms",
                                           "scratch_mib")})
+    kernels[2].update(kind="port-only: the JAX package's host prep "
+                      "(_prep), no Pallas kernel", cases=prep["cases"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -28,9 +28,10 @@
 // holds it is phase B's chain of waits, below, not arithmetic.
 //
 // Design. The range is cut into blocks of BLOCK consecutive points. The
-// wrapper (ops/poisson_cuda.py) builds on the card, in torch ops, the CSR
-// list of cross pairs: for every block bi the earlier blocks bj < bi whose
-// AABB meets bi's AABB inflated by the spacing. The work splits in two:
+// prep kernels below (prep_blocks_kernel, prep_pairs_kernel) build on the
+// card the CSR list of cross pairs: for every block bi the earlier blocks
+// bj < bi whose AABB meets bi's AABB inflated by the spacing. The work
+// splits in two:
 //
 //   Phase A, the close pairs (close_kernel): nothing here depends on a
 //   decision, so it runs on every SM, one CTA per block bi. The CTA stages
@@ -68,7 +69,9 @@
 //   CTA writes its mask and state bytes and publishes its ready flag with
 //   a release store.
 //
-//   Memory: the wrapper allocates every buffer with torch.empty. The close
+//   Memory: the wrapper allocates every buffer with torch.empty (the range
+//   path: once per sending thread, in a workspace reused from range to
+//   range, ops/poisson_cuda.py `_Workspace`). The close
 //   lists are held under a budget of entries (ops/poisson_cuda.py
 //   CLOSE_BUDGET). Past it, phases A and B run window by window over the
 //   blocks: the decisions of one window are final before the next window's
@@ -81,7 +84,8 @@
 // phase B's critical path is a wait, a read of a few mask bytes and the
 // relaxation rounds of one block; (3) each engine worker thread launches on
 // a stream of its own (ops/poisson_cuda.py), so the ranges of one finalize
-// level overlap; (4) the AABBs and the pair CSR are built on the card.
+// level overlap; (4) the AABBs and the pair CSR are built on the card, by
+// two launches of the prep (below) and not by a chain of torch ops.
 //
 // The bound of phase B is the longest dependency chain: block b waits on
 // block b' only when a point of b' is close to a point of b, and the chain
@@ -165,6 +169,7 @@ close_kernel(const T* __restrict__ planes,   // (3, n); x NaN = not analyzed
              const int32_t* __restrict__ pair_bj,
              int32_t b0, int64_t w0,
              const uint8_t* __restrict__ out,      // FILL: final for j < w0
+             const int64_t* __restrict__ gate,     // !FILL: nonzero = skip
              int32_t* __restrict__ counts,         // !FILL
              const int64_t* __restrict__ offsets,  // FILL
              int32_t* __restrict__ idx,            // FILL
@@ -172,6 +177,9 @@ close_kernel(const T* __restrict__ planes,   // (3, n); x NaN = not analyzed
   __shared__ __align__(16) T stage[2][3][BLOCK];
   __shared__ double box[2][3][CHUNKS];  // min / max per axis per chunk
 
+  // the range path's pair gate (prep_pairs_kernel's head[0]): a range past
+  // it goes to the host kernel, and its counting pass does nothing
+  if (!FILL && gate != nullptr && *gate != 0) return;
   const int i = threadIdx.x;
   const int32_t bi = b0 + static_cast<int32_t>(blockIdx.x);
   const int64_t gi = static_cast<int64_t>(bi) * BLOCK + i;
@@ -470,13 +478,237 @@ template <typename T, bool FILL>
 cudaError_t launch_close(const T* planes, int64_t n, T sq, double reach,
                          const int32_t* pair_ptr, const int32_t* pair_bj,
                          int32_t b0, int32_t b1, int64_t w0,
-                         const uint8_t* out, int32_t* counts,
-                         const int64_t* offsets, int32_t* idx,
-                         uint8_t* blocked, cudaStream_t stream) {
+                         const uint8_t* out, const int64_t* gate,
+                         int32_t* counts, const int64_t* offsets,
+                         int32_t* idx, uint8_t* blocked,
+                         cudaStream_t stream) {
   if (b1 <= b0) return cudaSuccess;
   close_kernel<T, FILL><<<b1 - b0, BLOCK, 0, stream>>>(
-      planes, n, sq, reach, pair_ptr, pair_bj, b0, w0, out, counts, offsets,
-      idx, blocked);
+      planes, n, sq, reach, pair_ptr, pair_bj, b0, w0, out, gate, counts,
+      offsets, idx, blocked);
+  return cudaGetLastError();
+}
+
+// -- the prep of one range -------------------------------------------------
+//
+// Port-only: the JAX package preps a range on the host in numpy
+// (schwarzwald_tpu/ops/poisson_pallas.py:62 `_prep`); there is no Pallas
+// kernel to replace. Its plain version is ops/poisson_cuda.py
+// `prep_torch` (pair_csr_torch and _masked), and its output equals that
+// version element for element: the (3, n) planes in the mode's type with x
+// = NaN at the points that are not analyzed; the per-block AABBs of the
+// unmasked planes, widened to double; the cross-pair CSR with the same
+// pairs in the same order (bj < bi, ascending bj within a row; lo = min - s
+// and hi = max + s rounded in double, the same <= and >= tests); n_cross
+// and the gate flag (n_cross + nb > MAX_PAIRS_PER_BLOCK * nb).
+//
+// Two launches. prep_blocks_kernel, one CTA per block: the planes, the
+// block's AABB, and the zeroing of what the range's kernels expect zeroed
+// (phase B's state bytes, ready flags and tickets; the pair scan's status
+// words and ticket). prep_pairs_kernel, one CTA per row bi taken from a
+// ticket: it tests every bj < bi (a range of nb blocks costs nb^2 / 2 box
+// tests, 57M at the 5.49M-point root, all in L2), counts the row, gets the
+// row's start by a single-pass scan with decoupled look-back (each row
+// publishes its count at once, then its inclusive prefix; a row sums the
+// counts back to the first inclusive prefix it meets; rows are taken in
+// ascending ticket order, so every row it waits on is held by a running
+// CTA that publishes without waiting: no deadlock), then tests the row
+// again and writes its pairs in order. pair_bj holds `cap` entries, the
+// gate's capacity: no entry is written at or past it, and a row whose end
+// passes it writes none (the gate has tripped). The last row writes
+// head[0] (the gate flag) and head[1] (n_cross).
+//
+// Bound: 24 bytes in per point (positions, f64), 3 coordinates out and
+// 4 bytes per pair; the box tests are a few thousand per block. The
+// kernels' time is launch-sized at the main path's ranges (8-200 blocks).
+
+constexpr int PAIR_THREADS = 256;
+constexpr int PAIR_WARPS = PAIR_THREADS / 32;
+constexpr unsigned long long SCAN_AGGREGATE = 1ull << 62;
+constexpr unsigned long long SCAN_PREFIX = 2ull << 62;
+constexpr unsigned long long SCAN_VALUE = (1ull << 62) - 1;
+
+// min / max that keep a NaN, as torch.amin / amax do
+__device__ __forceinline__ double nan_min(double a, double b) {
+  return a != a ? a : (b != b || b < a ? b : a);
+}
+__device__ __forceinline__ double nan_max(double a, double b) {
+  return a != a ? a : (b != b || b > a ? b : a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
+prep_blocks_kernel(const double* __restrict__ pos,      // (n, 3)
+                   const uint8_t* __restrict__ analyze,  // (n,) or null
+                   int64_t n, int32_t nb,
+                   T* __restrict__ planes,               // (3, n)
+                   double* __restrict__ box,             // (6, nb)
+                   unsigned long long* __restrict__ scan,
+                   int32_t* __restrict__ pair_ticket,
+                   uint8_t* __restrict__ state,
+                   int32_t* __restrict__ flags,
+                   int32_t* __restrict__ tickets) {
+  __shared__ double part[2][3][BLOCK / 32];
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int32_t b = blockIdx.x;
+  const int64_t gi = static_cast<int64_t>(b) * BLOCK + i;
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  double lo[3] = {inf, inf, inf};
+  double hi[3] = {-inf, -inf, -inf};
+  if (gi < n) {
+    T v[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      v[a] = static_cast<T>(pos[gi * 3 + a]);
+      lo[a] = hi[a] = static_cast<double>(v[a]);
+    }
+    planes[gi] = (analyze != nullptr && analyze[gi] == 0) ? quiet_nan<T>()
+                                                          : v[0];
+    planes[n + gi] = v[1];
+    planes[2 * n + gi] = v[2];
+    state[gi] = 0;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = nan_min(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], off));
+      hi[a] = nan_max(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], off));
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      part[0][a][warp] = lo[a];
+      part[1][a][warp] = hi[a];
+    }
+  }
+  __syncthreads();
+  if (i < 3) {
+    double m = part[0][i][0];
+    double x = part[1][i][0];
+    for (int w = 1; w < BLOCK / 32; ++w) {
+      m = nan_min(m, part[0][i][w]);
+      x = nan_max(x, part[1][i][w]);
+    }
+    box[i * nb + b] = m;
+    box[(3 + i) * nb + b] = x;
+  }
+  if (i == 0) {
+    flags[b] = 0;
+    tickets[b] = 0;
+    scan[b] = 0ull;
+    if (b == 0) *pair_ticket = 0;
+  }
+}
+
+__global__ void __launch_bounds__(PAIR_THREADS)
+prep_pairs_kernel(const double* __restrict__ box, int32_t nb, double s,
+                  int64_t cap, int32_t* __restrict__ pair_ptr,
+                  int32_t* __restrict__ pair_bj, unsigned long long* scan,
+                  int32_t* pair_ticket, int64_t* __restrict__ head) {
+  __shared__ int32_t s_row;
+  __shared__ long long s_sum[PAIR_WARPS];
+  __shared__ long long s_start;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) s_row = atomicAdd(pair_ticket, 1);
+  __syncthreads();
+  const int32_t r = s_row;
+  double lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = __dsub_rn(box[a * nb + r], s);
+    hi[a] = __dadd_rn(box[(3 + a) * nb + r], s);
+  }
+  auto meets = [&](int32_t j) -> bool {
+    bool m = j < r;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      m = m && lo[a] <= box[(3 + a) * nb + j] && hi[a] >= box[a * nb + j];
+    }
+    return m;
+  };
+
+  // the row's count
+  long long cnt = 0;
+  for (int32_t j0 = 0; j0 < r; j0 += PAIR_THREADS) cnt += meets(j0 + t);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+  }
+  if (lane == 0) s_sum[warp] = cnt;
+  __syncthreads();
+  if (t == 0) {
+    long long c = 0;
+    for (int w = 0; w < PAIR_WARPS; ++w) c += s_sum[w];
+    cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> mine(
+        scan[r]);
+    long long start = 0;
+    if (r > 0) {
+      mine.store(SCAN_AGGREGATE | static_cast<unsigned long long>(c),
+                 cuda::memory_order_relaxed);
+      for (int32_t j = r - 1;;) {
+        cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> st(
+            scan[j]);
+        const unsigned long long v = st.load(cuda::memory_order_relaxed);
+        if (v == 0ull) {
+          __nanosleep(32);
+          continue;
+        }
+        start += static_cast<long long>(v & SCAN_VALUE);
+        if ((v & ~SCAN_VALUE) == SCAN_PREFIX || j == 0) break;
+        --j;
+      }
+    }
+    const long long end = start + c;
+    mine.store(SCAN_PREFIX | static_cast<unsigned long long>(end),
+               cuda::memory_order_relaxed);
+    pair_ptr[r + 1] = static_cast<int32_t>(min(end, 2147483647LL));
+    if (r == 0) pair_ptr[0] = 0;
+    if (r == nb - 1) {
+      head[0] = end > cap ? 1 : 0;
+      head[1] = end;
+    }
+    s_start = end > cap ? -1 : start;  // -1: past the gate, write nothing
+  }
+  __syncthreads();
+
+  // the row's pairs, in ascending bj
+  long long base = s_start;
+  if (base < 0) return;
+  for (int32_t j0 = 0; j0 < r; j0 += PAIR_THREADS) {
+    const bool m = meets(j0 + t);
+    const unsigned bal = __ballot_sync(0xffffffffu, m);
+    if (lane == 0) s_sum[warp] = __popc(bal);
+    __syncthreads();
+    long long at = base;
+    long long chunk = 0;
+    for (int w = 0; w < PAIR_WARPS; ++w) {
+      at += w < warp ? s_sum[w] : 0;
+      chunk += s_sum[w];
+    }
+    if (m) pair_bj[at + __popc(bal & ((1u << lane) - 1u))] = j0 + t;
+    base += chunk;
+    __syncthreads();  // before the next chunk overwrites s_sum
+  }
+}
+
+template <typename T>
+cudaError_t launch_prep_blocks(const double* pos, const uint8_t* analyze,
+                               int64_t n, T* planes, double* box,
+                               unsigned long long* scan,
+                               int32_t* pair_ticket, uint8_t* state,
+                               int32_t* flags, int32_t* tickets,
+                               cudaStream_t stream) {
+  const int64_t nb = (n + BLOCK - 1) / BLOCK;
+  if (nb <= 0) return cudaSuccess;
+  prep_blocks_kernel<T><<<static_cast<unsigned>(nb), BLOCK, 0, stream>>>(
+      pos, analyze, n, static_cast<int32_t>(nb), planes, box, scan,
+      pair_ticket, state, flags, tickets);
   return cudaGetLastError();
 }
 
@@ -489,24 +721,30 @@ int poisson_block_size() { return BLOCK; }
 // Each entry point launches one kernel on `stream`, asynchronously, and
 // returns cudaGetLastError() after the launch (0 = launched). Nothing is
 // allocated or synchronised here. `reach` is the cull's per-axis reach,
-// never tighter than the close test (ops/poisson_cuda.py).
+// never tighter than the close test (ops/poisson_cuda.py). `gate` (may be
+// null) is the prep's head: the counting pass does nothing when head[0] is
+// set.
 
 int poisson_close_count_f64(const double* planes, int64_t n, double sq,
                             double reach, const int32_t* pair_ptr,
                             const int32_t* pair_bj, int32_t b0, int32_t b1,
-                            int64_t w0, int32_t* counts, void* stream) {
+                            int64_t w0, const int64_t* gate, int32_t* counts,
+                            void* stream) {
   return static_cast<int>(launch_close<double, false>(
-      planes, n, sq, reach, pair_ptr, pair_bj, b0, b1, w0, nullptr, counts,
-      nullptr, nullptr, nullptr, static_cast<cudaStream_t>(stream)));
+      planes, n, sq, reach, pair_ptr, pair_bj, b0, b1, w0, nullptr, gate,
+      counts, nullptr, nullptr, nullptr,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int poisson_close_count_f32(const float* planes, int64_t n, float sq,
                             double reach, const int32_t* pair_ptr,
                             const int32_t* pair_bj, int32_t b0, int32_t b1,
-                            int64_t w0, int32_t* counts, void* stream) {
+                            int64_t w0, const int64_t* gate, int32_t* counts,
+                            void* stream) {
   return static_cast<int>(launch_close<float, false>(
-      planes, n, sq, reach, pair_ptr, pair_bj, b0, b1, w0, nullptr, counts,
-      nullptr, nullptr, nullptr, static_cast<cudaStream_t>(stream)));
+      planes, n, sq, reach, pair_ptr, pair_bj, b0, b1, w0, nullptr, gate,
+      counts, nullptr, nullptr, nullptr,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int poisson_close_fill_f64(const double* planes, int64_t n, double sq,
@@ -517,7 +755,7 @@ int poisson_close_fill_f64(const double* planes, int64_t n, double sq,
                            uint8_t* blocked, void* stream) {
   return static_cast<int>(launch_close<double, true>(
       planes, n, sq, reach, pair_ptr, pair_bj, b0, b1, w0, out, nullptr,
-      offsets, idx, blocked, static_cast<cudaStream_t>(stream)));
+      nullptr, offsets, idx, blocked, static_cast<cudaStream_t>(stream)));
 }
 
 int poisson_close_fill_f32(const float* planes, int64_t n, float sq,
@@ -528,7 +766,7 @@ int poisson_close_fill_f32(const float* planes, int64_t n, float sq,
                            uint8_t* blocked, void* stream) {
   return static_cast<int>(launch_close<float, true>(
       planes, n, sq, reach, pair_ptr, pair_bj, b0, b1, w0, out, nullptr,
-      offsets, idx, blocked, static_cast<cudaStream_t>(stream)));
+      nullptr, offsets, idx, blocked, static_cast<cudaStream_t>(stream)));
 }
 
 int poisson_decide(int64_t n, int32_t b0, int32_t b1, const int64_t* offsets,
@@ -539,6 +777,52 @@ int poisson_decide(int64_t n, int32_t b0, int32_t b1, const int64_t* offsets,
   decide_kernel<<<b1 - b0, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       n, b0, offsets, idx, blocked, ticket, flags, state, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The prep of one range of n points (nb = ceil(n / BLOCK) blocks): first
+// poisson_prep_blocks_*, then poisson_prep_pairs on the same stream.
+// `scan` holds nb status words and `tickets` nb entries; `cap` is pair_bj's
+// capacity, MAX_PAIRS_PER_BLOCK * nb - nb.
+
+int poisson_prep_blocks_f64(const double* pos, const uint8_t* analyze,
+                            int64_t n, double* planes, double* box,
+                            unsigned long long* scan, int32_t* pair_ticket,
+                            uint8_t* state, int32_t* flags, int32_t* tickets,
+                            void* stream) {
+  return static_cast<int>(launch_prep_blocks<double>(
+      pos, analyze, n, planes, box, scan, pair_ticket, state, flags, tickets,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int poisson_prep_blocks_f32(const double* pos, const uint8_t* analyze,
+                            int64_t n, float* planes, double* box,
+                            unsigned long long* scan, int32_t* pair_ticket,
+                            uint8_t* state, int32_t* flags, int32_t* tickets,
+                            void* stream) {
+  return static_cast<int>(launch_prep_blocks<float>(
+      pos, analyze, n, planes, box, scan, pair_ticket, state, flags, tickets,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int poisson_prep_pairs(const double* box, int32_t nb, double s, int64_t cap,
+                       int32_t* pair_ptr, int32_t* pair_bj,
+                       unsigned long long* scan, int32_t* pair_ticket,
+                       int64_t* head, void* stream) {
+  if (nb <= 0) return 0;
+  prep_pairs_kernel<<<nb, PAIR_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      box, nb, s, cap, pair_ptr, pair_bj, scan, pair_ticket, head);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An asynchronous copy of `bytes` on `stream`: kind 1 host to device, 2
+// device to host (cudaMemcpyKind). Returns the CUDA error (0 = queued).
+int poisson_copy(void* dst, const void* src, int64_t bytes, int kind,
+                 void* stream) {
+  if (bytes <= 0) return 0;
+  return static_cast<int>(cudaMemcpyAsync(
+      dst, src, static_cast<size_t>(bytes), static_cast<cudaMemcpyKind>(kind),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // A stream of the caller's own on the current device, outside PyTorch's

@@ -11,8 +11,10 @@ d2 < spacing^2, d2 = (dx*dx + dy*dy) + dz*dz.
 The range is cut into blocks of `block` consecutive points, and for every
 block bi the earlier blocks bj < bi whose AABB meets bi's AABB inflated by
 the spacing are listed (CSR pair_ptr / pair_bj): `_pair_csr` in numpy
-(`prep`, the CPU path) or `pair_csr_torch` on the card (`range_mask_cuda`).
-The mask does not depend on the block size. Two formulations compute it:
+(`prep`, the CPU path), or on the card the prep kernels of csrc/poisson.cu
+(`range_prep`, which `range_mask_cuda` runs; plain version `prep_torch`,
+from `pair_csr_torch` and `_masked`). The mask does not depend on the block
+size. Two formulations compute it:
 
   * block-sequential (`accept_mask_torch`, the plain version of the whole
     mask, which the CPU path runs): blocks decided in ascending order, a
@@ -44,19 +46,25 @@ Dispatch rules (deterministic, each counted in `counters`):
     points inside a few spacing balls) -> the host kernel;
   * kernel / plain: the range ran on the CUDA kernels (a CUDA device) or on
     the plain-torch version (the CPU).
-`launches` counts kernel launches; the wrapper adds one where it launches a
-kernel and nowhere else. Each sending thread runs its ranges on a CUDA
-stream that no other live thread holds (`thread_stream`, `StreamPool`);
-`trace`, when set to a list, receives one record per range that
-`range_mask_cuda` ran.
+`launches` counts K2's launches (phase A's counting and filling kernels,
+phase B's deciding kernel); the wrapper adds one where it launches a kernel
+and nowhere else, so a range past the pair gate adds one: its counting pass
+is launched and returns at once on the card. `prep_launches` counts the
+prep kernels' launches the same way. Each sending thread runs its ranges on
+a CUDA stream that no other live thread holds (`thread_stream`,
+`StreamPool`), with the buffers of a workspace that goes with the stream
+(`_Workspace`); `trace`, when set to a list, receives one record per range
+that `range_mask_cuda` ran.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
 import time
 import weakref
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -68,11 +76,24 @@ DEVICE_FLOOR = 4096         # smallest range sent to the device
 # close-list entries (int32 point indices) held at once: 256 MB. A window
 # of blocks holds at most this many, or one block's intra pairs.
 CLOSE_BUDGET = 1 << 26
+# The memory of the sending threads' workspaces, summed over all live ones.
+# A workspace keeps what its largest range needed (about 26 bytes a point
+# pinned, 70 on the card, up to twice that after rounding, plus the close
+# lists), and the engine runs 8-18 sending threads, more on a larger host;
+# page-locked memory is taken from what the host's batches and the sinks'
+# write-behind need, and card memory from the sweep and the exchange. A
+# range that would take the workspaces past a cap runs on one-off buffers
+# (pageable host memory), dropped when it ends.
+PINNED_CAP = 2 << 30
+DEVICE_CAP = 8 << 30
+# the buffer groups of a workspace (`_Workspace.arrays`)
+PARTS = ("host", "upload", "prep", "k2")
 # elements of one chunk of the block-pair test in pair_csr_torch
 _PAIR_CHUNK = 1 << 22
 
 _lock = threading.Lock()
 launches = 0
+prep_launches = 0
 counters = {"below_floor": 0, "pair_gate": 0, "kernel": 0, "plain": 0}
 trace: list | None = None
 
@@ -83,9 +104,9 @@ def count(rule: str) -> None:
 
 
 def reset_counters() -> None:
-    global launches
+    global launches, prep_launches
     with _lock:
-        launches = 0
+        launches = prep_launches = 0
         for k in counters:
             counters[k] = 0
 
@@ -99,6 +120,12 @@ def _launched() -> None:
     global launches
     with _lock:
         launches += 1
+
+
+def _prep_launched() -> None:
+    global prep_launches
+    with _lock:
+        prep_launches += 1
 
 
 # -- the prep --------------------------------------------------------------------
@@ -250,6 +277,38 @@ def pair_csr_torch(planes: torch.Tensor, s: float, max_pairs: int,
     return ptr.to(torch.int32), pair_bj[:n_cross]
 
 
+def gate_capacity(n_blocks: int) -> int:
+    """pair_bj's capacity on the range path: the cross pairs the gate
+    admits (it counts each block's pair with itself too), about 0.75 bytes
+    a point."""
+    return MAX_PAIRS_PER_BLOCK * n_blocks - n_blocks
+
+
+def prep_torch(positions: torch.Tensor, analyze: torch.Tensor | None,
+               spacing: float, precision: str = "f64",
+               block: int = BLOCK) -> tuple:
+    """The plain version of the prep kernels (csrc/poisson.cu
+    prep_blocks_kernel, prep_pairs_kernel) on (n, 3) float64 positions and
+    an optional (n,) uint8 analyze mask: (planes, pair_ptr, pair_bj, head).
+    planes: (3, n) in the mode's dtype, x = NaN where the point is not
+    analyzed (`_masked`). pair_ptr: (n_blocks + 1,) int32, and the first
+    n_cross entries of pair_bj, (gate_capacity(n_blocks),) int32:
+    `pair_csr_torch`'s CSR. head: int64 (gate flag, n_cross); the gate is
+    set when n_cross + n_blocks passes MAX_PAIRS_PER_BLOCK * n_blocks, and
+    then pair_bj's entries are not part of the contract."""
+    dtype = torch.float64 if precision == "f64" else torch.float32
+    planes = positions.to(dtype).t().contiguous()
+    nb = -(-planes.shape[1] // block)
+    ptr, bj = pair_csr_torch(planes, inflation(spacing), 1 << 62, block)
+    n_cross, cap = bj.numel(), gate_capacity(nb)
+    pair_bj = torch.zeros(cap, dtype=torch.int32, device=positions.device)
+    if n_cross <= cap:
+        pair_bj[:n_cross] = bj
+    head = torch.tensor([int(n_cross > cap), n_cross], dtype=torch.int64,
+                        device=positions.device)
+    return _masked(planes, analyze), ptr, pair_bj, head
+
+
 def plan_windows(block_totals: np.ndarray, budget: int) -> list:
     """Cut the blocks into windows [b0, b1) of at most `budget` close-list
     entries (by each block's full count), each at least one block."""
@@ -297,7 +356,12 @@ _c_fns: dict = {}
 
 def _kernel_fns(precision: str) -> dict:
     """ctypes entry points of csrc/poisson.cu for the mode (built and
-    loaded at first use): close_count, close_fill, decide."""
+    loaded at first use): close_count, close_fill, decide, the prep's
+    prep_blocks and prep_pairs, and copy. Each only queues work on a
+    stream and returns in microseconds, so it is called holding the
+    interpreter lock (ctypes.PyDLL): with the engine's 8-25 sending threads
+    a thread that let the lock go waited about 0.6 ms to win it back
+    (PERF.md section 5), and a range makes eight such calls."""
     fns = _c_fns.get(precision)
     if fns is not None:
         return fns
@@ -309,15 +373,23 @@ def _kernel_fns(precision: str) -> dict:
     if lib.poisson_block_size() != BLOCK:
         raise RuntimeError("csrc/poisson.cu BLOCK disagrees with "
                            "ops/poisson_cuda.BLOCK")
+    held = ctypes.PyDLL(lib._name)
     scalar = ctypes.c_double if precision == "f64" else ctypes.c_float
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     common = [p, i64, scalar, ctypes.c_double, p, p, i32, i32, i64]
-    fns = {"close_count": getattr(lib, f"poisson_close_count_{precision}"),
-           "close_fill": getattr(lib, f"poisson_close_fill_{precision}"),
-           "decide": lib.poisson_decide}
-    fns["close_count"].argtypes = common + [p, p]
+    fns = {"close_count": getattr(held, f"poisson_close_count_{precision}"),
+           "close_fill": getattr(held, f"poisson_close_fill_{precision}"),
+           "decide": held.poisson_decide,
+           "prep_blocks": getattr(held, f"poisson_prep_blocks_{precision}"),
+           "prep_pairs": held.poisson_prep_pairs,
+           "copy": held.poisson_copy}
+    fns["close_count"].argtypes = common + [p, p, p]
     fns["close_fill"].argtypes = common + [p, p, p, p, p]
     fns["decide"].argtypes = [i64, i32, i32, p, p, p, p, p, p, p, p]
+    fns["prep_blocks"].argtypes = [p, p, i64, p, p, p, p, p, p, p, p]
+    fns["prep_pairs"].argtypes = [p, i32, ctypes.c_double, i64, p, p, p, p,
+                                  p, p]
+    fns["copy"].argtypes = [p, p, i64, ctypes.c_int, p]
     for fn in fns.values():
         fn.restype = ctypes.c_int
     _c_fns[precision] = fns
@@ -340,14 +412,14 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(fn, *args) -> None:
+def _launch(fn, *args, counter=_launched) -> None:
     """Call one launching entry point on the current stream; raise on a
-    refused launch, count it otherwise."""
+    refused launch, count it on `counter` otherwise."""
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"poisson kernel launch failed: CUDA error {err}")
-    _launched()
+    counter()
 
 
 def _checked_inputs(planes, analyze, pair_ptr, pair_bj) -> tuple:
@@ -381,13 +453,58 @@ def _reach(sq: float) -> float:
     return math.sqrt(sq) * (1.0 + 1e-4)
 
 
-def _close_count(fns, planes, n, sq, pair_ptr, pair_bj, b0, b1, counts):
+# The kernels' wrappers below launch on a CUDA tensor and write into the
+# buffers they are given. Their CPU branches, which run the plain versions,
+# are there for the tests of the range path (tests/test_torch_poisson_prep.py
+# drives `_range_mask` and `range_prep` on CPU workspaces).
+
+def _prep(pos, analyze, n, nb, spacing, precision, buf) -> None:
+    """The prep of a range into buf.planes, .ptr, .bj and .head[:2] (the
+    prep kernels; on the card it also zeroes buf.state, .flags and
+    .tickets and uses buf.box, .scan and .misc as scratch). pos is the
+    range's (3n,) float64 positions, analyze its (n,) uint8 mask or None."""
+    if pos.device.type == "cpu":
+        planes, ptr, bj, head = prep_torch(pos.view(n, 3), analyze, spacing,
+                                           precision)
+        buf.planes.copy_(planes)
+        buf.ptr.copy_(ptr)
+        buf.bj.copy_(bj)
+        buf.head[:2].copy_(head)
+        return
+    fns = _kernel_fns(precision)
+    _launch(fns["prep_blocks"], _ptr(pos), _ptr(analyze), n,
+            _ptr(buf.planes), _ptr(buf.box), _ptr(buf.scan), _ptr(buf.misc),
+            _ptr(buf.state), _ptr(buf.flags), _ptr(buf.tickets),
+            counter=_prep_launched)
+    _launch(fns["prep_pairs"], _ptr(buf.box), nb, inflation(spacing),
+            gate_capacity(nb), _ptr(buf.ptr), _ptr(buf.bj), _ptr(buf.scan),
+            _ptr(buf.misc), _ptr(buf.head), counter=_prep_launched)
+
+
+def _close_count(fns, planes, n, sq, pair_ptr, pair_bj, b0, b1, counts,
+                 gate=None):
+    """Phase A's counting pass over [b0, b1); it does nothing when
+    gate[0] (the prep's head) is set."""
+    if planes.device.type == "cpu":
+        if gate is None or not gate[0]:
+            offsets, _, _ = close_lists_torch(
+                planes, None, sq, pair_ptr, pair_bj, BLOCK, b0, b1,
+                torch.zeros(n, dtype=torch.uint8))
+            counts.copy_(offsets[1:] - offsets[:-1])
+        return
     _launch(fns["close_count"], _ptr(planes), n, sq, _reach(sq),
-            _ptr(pair_ptr), _ptr(pair_bj), b0, b1, b0 * BLOCK, _ptr(counts))
+            _ptr(pair_ptr), _ptr(pair_bj), b0, b1, b0 * BLOCK, _ptr(gate),
+            _ptr(counts))
 
 
 def _close_fill(fns, planes, n, sq, pair_ptr, pair_bj, b0, b1, out,
                 offsets, idx, blocked):
+    if planes.device.type == "cpu":
+        _, lists, flags = close_lists_torch(planes, None, sq, pair_ptr,
+                                            pair_bj, BLOCK, b0, b1, out)
+        idx[:lists.numel()] = lists
+        blocked.copy_(flags)
+        return
     _launch(fns["close_fill"], _ptr(planes), n, sq, _reach(sq),
             _ptr(pair_ptr), _ptr(pair_bj), b0, b1, b0 * BLOCK, _ptr(out),
             _ptr(offsets), _ptr(idx), _ptr(blocked))
@@ -395,6 +512,9 @@ def _close_fill(fns, planes, n, sq, pair_ptr, pair_bj, b0, b1, out,
 
 def _decide(fns, n, b0, b1, offsets, idx, blocked, ticket, flags, state,
             out):
+    if offsets.device.type == "cpu":
+        decide_torch(n, offsets, idx, blocked, BLOCK, b0, b1, out)
+        return
     _launch(fns["decide"], n, b0, b1, _ptr(offsets), _ptr(idx),
             _ptr(blocked), _ptr(ticket), _ptr(flags), _ptr(state), _ptr(out))
 
@@ -404,6 +524,61 @@ def _offsets(counts: torch.Tensor) -> torch.Tensor:
                           device=counts.device)
     torch.cumsum(counts, 0, dtype=torch.int64, out=offsets[1:])
     return offsets
+
+
+def _copy(fns, dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst <- src between a workspace's pinned host buffer and its device
+    buffer, queued on the current stream; with fns None (the CPU, or a
+    one-off workspace's pageable host memory, which a copy waits on) a
+    torch copy, which lets the interpreter lock go."""
+    if fns is None:
+        dst.copy_(src, non_blocking=True)
+        return
+    kind = 1 if dst.device.type == "cuda" else 2  # cudaMemcpyKind
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fns["copy"](_ptr(dst), _ptr(src), src.nbytes, kind,
+                      ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"poisson copy failed: CUDA error {err}")
+
+
+def _event(events):
+    """A CUDA event recorded on the current stream, when timing."""
+    if events is None:
+        return None
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def _run_windows(fns, planes, n, sq, pair_ptr, pair_bj, totals, budget,
+                 buf, take_idx, events, a0) -> tuple:
+    """Phase A's fill and phase B window by window, after phase A's
+    counting pass over every block (buf.counts; `totals` its per-block
+    sums, on the host). buf holds out, counts, blocked, flags, state and
+    tickets (zeroed) and offsets (offsets[0] = 0); take_idx(entries) gives
+    the close-list buffer. `events`, when a list, receives (phase, start,
+    end) CUDA events, phase A from `a0`. Returns (windows, the last
+    window's lists (offsets, idx, blocked))."""
+    windows = plan_windows(totals, budget)
+    idx = take_idx(_list_capacity(totals, windows, budget, BLOCK))
+    for w, (b0, b1) in enumerate(windows):
+        p0, p1 = b0 * BLOCK, b1 * BLOCK
+        if w:
+            a0 = _event(events)
+            _close_count(fns, planes, n, sq, pair_ptr, pair_bj, b0, b1,
+                         buf.counts[p0:p1])
+        offsets = buf.offsets[:p1 - p0 + 1]
+        torch.cumsum(buf.counts[p0:p1], 0, dtype=torch.int64,
+                     out=offsets[1:])
+        _close_fill(fns, planes, n, sq, pair_ptr, pair_bj, b0, b1, buf.out,
+                    offsets, idx, buf.blocked[p0:p1])
+        a1 = _event(events)
+        _decide(fns, n, b0, b1, offsets, idx, buf.blocked[p0:p1],
+                buf.tickets[w:w + 1], buf.flags, buf.state, buf.out)
+        if events is not None:
+            events += [("A", a0, a1), ("B", a1, _event(events))]
+    return windows, (offsets, idx, buf.blocked[p0:p1])
 
 
 def accept_mask_cuda(planes: torch.Tensor, analyze: torch.Tensor | None,
@@ -426,47 +601,48 @@ def accept_mask_cuda(planes: torch.Tensor, analyze: torch.Tensor | None,
     device = planes.device
     with torch.cuda.device(device):
         events = [] if stats is not None else None
-
-        def mark():
-            if events is None:
-                return None
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            return e
-
-        a0 = mark()
+        a0 = _event(events)
         planes = _masked(planes, analyze)
-        out = torch.empty(n, dtype=torch.uint8, device=device)
-        counts = torch.empty(nb * BLOCK, dtype=torch.int32, device=device)
-        blocked = torch.empty(nb * BLOCK, dtype=torch.uint8, device=device)
-        flags = torch.zeros(nb, dtype=torch.int32, device=device)
-        state = torch.zeros(n, dtype=torch.uint8, device=device)
-        _close_count(fns, planes, n, sq, pair_ptr, pair_bj, 0, nb, counts)
-        totals = counts.view(nb, BLOCK).sum(dim=1, dtype=torch.int64).cpu()
-        totals = totals.numpy()
-        windows = plan_windows(totals, budget)
-        idx = torch.empty(_list_capacity(totals, windows, budget, BLOCK),
-                          dtype=torch.int32, device=device)
-        tickets = torch.zeros(len(windows), dtype=torch.int32, device=device)
-        for w, (b0, b1) in enumerate(windows):
-            p0, p1 = b0 * BLOCK, b1 * BLOCK
-            if w:
-                a0 = mark()
-                _close_count(fns, planes, n, sq, pair_ptr, pair_bj, b0, b1,
-                             counts[p0:p1])
-            offsets = _offsets(counts[p0:p1])
-            _close_fill(fns, planes, n, sq, pair_ptr, pair_bj, b0, b1, out,
-                        offsets, idx, blocked[p0:p1])
-            a1 = mark()
-            _decide(fns, n, b0, b1, offsets, idx, blocked[p0:p1],
-                    tickets[w:w + 1], flags, state, out)
-            if events is not None:
-                events += [("A", a0, a1), ("B", a1, mark())]
+        buf = _Workspace(device, counted=False).arrays(n, precision, False,
+                                                        ("k2",))
+        for t in (buf.flags, buf.state, buf.tickets):
+            t.zero_()  # the range path's prep zeroes them
+        _close_count(fns, planes, n, sq, pair_ptr, pair_bj, 0, nb,
+                     buf.counts)
+        totals = buf.counts.view(nb, BLOCK).sum(dim=1, dtype=torch.int64)
+        totals = totals.cpu().numpy()
+        windows, lists = _run_windows(
+            fns, planes, n, sq, pair_ptr, pair_bj, totals, budget, buf,
+            lambda k: torch.empty(k, dtype=torch.int32, device=device),
+            events, a0)
         if stats is not None:
             stats.update(windows=len(windows),
                          close_entries=int(totals.sum()), events=events,
-                         lists=(offsets, idx, blocked[p0:p1]))
-    return out
+                         lists=lists)
+    return buf.out
+
+
+def range_prep(positions: torch.Tensor, analyze: torch.Tensor | None,
+               spacing: float, precision: str = "f64") -> tuple:
+    """The prep of one range, as the range path runs it, into one-off
+    buffers of a workspace: the prep kernels on CUDA tensors (on the
+    current stream, nothing synchronised), their plain version `prep_torch`
+    on CPU ones. positions: (n, 3) float64; analyze: (n,) uint8 or None.
+    Returns (planes, pair_ptr, pair_bj, head) as `prep_torch` does."""
+    n = positions.shape[0]
+    if n >= 1 << 31:
+        raise ValueError(f"a range holds at most 2^31 - 1 points, got {n}")
+    device = positions.device
+    _check(positions, "positions", torch.float64, (n, 3), device)
+    if analyze is not None:
+        _check(analyze, "analyze", torch.uint8, (n,), device)
+    buf = _Workspace(device, counted=False).arrays(n, precision, False,
+                                                    ("prep", "k2"))
+    with (torch.cuda.device(device) if device.type == "cuda"
+          else contextlib.nullcontext()):
+        _prep(positions.view(-1), analyze, n, -(-n // BLOCK), spacing,
+              precision, buf)
+    return buf.planes, buf.ptr, buf.bj, buf.head[:2]
 
 
 def phase_ms(stats: dict) -> dict:
@@ -476,6 +652,142 @@ def phase_ms(stats: dict) -> dict:
     for phase, start, end in stats["events"]:
         ms[phase] += start.elapsed_time(end)
     return ms
+
+
+# -- the sending threads' workspaces ---------------------------------------------
+
+_ws_lock = threading.Lock()
+_ws_held = {"host": 0, "device": 0, "peak_host": 0, "peak_device": 0,
+            "one_off": 0}
+
+
+class _Workspace:
+    """The buffers of one sending thread's ranges on one device: pinned
+    host buffers for the upload and the download, and the device scratch
+    of the prep and the kernels. It goes from thread to thread with the
+    stream it is used on (`StreamPool.workspace`), so it is used only on
+    that stream, one range at a time, and a range takes it only after the
+    stream's previous range synchronised (`pending`: after a range that
+    raised part way, the next one synchronises first): reuse needs no
+    events.
+
+    A buffer grows to the next power of two of elements at least what a
+    range needs, and stays; a range takes views of its first elements.
+    Growth is held under PINNED_CAP and DEVICE_CAP summed over all
+    workspaces; `arrays` returns None past a cap. A one-off workspace
+    (`counted=False`) takes exact sizes, pageable host memory, and counts
+    toward no cap."""
+
+    def __init__(self, device, counted: bool = True):
+        self.device = torch.device(device)
+        self.counted = counted
+        self.pending = False
+        self._bufs: dict = {}
+
+    def _take(self, need: dict) -> dict | None:
+        """Views of `need` ({name: (dtype, count, on the host)}) after
+        growing what is short; None, growing nothing, past a cap."""
+        grow = {}
+        for name, (dtype, count, host) in need.items():
+            t = self._bufs.get(name)
+            if t is None or t.numel() < count:
+                size = (max(count, 1) if not self.counted
+                        else 1 << max(0, count - 1).bit_length())
+                grow[name] = (dtype, size, host)
+        if grow:
+            if not self.counted:
+                self._grow(grow)
+            else:
+                with _ws_lock:
+                    delta = {"host": 0, "device": 0}
+                    for name, (dtype, size, host) in grow.items():
+                        old = self._bufs.get(name)
+                        delta["host" if host else "device"] += (
+                            size * dtype.itemsize
+                            - (0 if old is None else old.nbytes))
+                    if (_ws_held["host"] + delta["host"] > PINNED_CAP
+                            or _ws_held["device"] + delta["device"]
+                            > DEVICE_CAP):
+                        return None
+                    self._grow(grow)
+                    for key, d in delta.items():
+                        _ws_held[key] += d
+                        _ws_held[f"peak_{key}"] = max(_ws_held[f"peak_{key}"],
+                                                      _ws_held[key])
+        return {name: self._bufs[name][:count]
+                for name, (_, count, _) in need.items()}
+
+    def _grow(self, grow: dict) -> None:
+        pinned = self.counted and self.device.type == "cuda"
+        for name, (dtype, size, host) in grow.items():
+            self._bufs.pop(name, None)
+            t = torch.empty(size, dtype=dtype,
+                            device="cpu" if host else self.device,
+                            pin_memory=host and pinned)
+            if name == "offsets":
+                t[:1].zero_()  # the windows' cumsum writes offsets[1:]
+            self._bufs[name] = t
+
+    def arrays(self, n: int, precision: str, analyze: bool,
+               parts=PARTS):
+        """The views of one range of n points, as a namespace, or None
+        past a cap. This is the one list of the range path's buffers; each
+        of `parts` adds its group, and a name of a group left out is None:
+        "host": up (3n,) float64 and up_ana (n,) uint8, down (n,) uint8,
+        head_host (2 + nb,) int64; "upload": pos and ana, their copies on
+        the device; "prep": planes (3, n), box, ptr, bj (at the gate's
+        capacity), head (gate flag, n_cross, the nb per-block close
+        totals), scan, misc; "k2": counts, blocked, flags, tickets, state,
+        out and offsets."""
+        nb = -(-n // BLOCK)
+        f64, i64, i32, u8 = torch.float64, torch.int64, torch.int32, \
+            torch.uint8
+        dtype = f64 if precision == "f64" else torch.float32
+        planes = f"planes_{precision}"
+        groups = {
+            "host": {"up": (f64, 3 * n, True), "down": (u8, n, True),
+                     "head_host": (i64, 2 + nb, True),
+                     "up_ana": (u8, n, True)},
+            "upload": {"pos": (f64, 3 * n, False), "ana": (u8, n, False)},
+            "prep": {planes: (dtype, 3 * n, False),
+                     "box": (f64, 6 * nb, False),
+                     "ptr": (i32, nb + 1, False),
+                     "bj": (i32, gate_capacity(nb), False),
+                     "head": (i64, 2 + nb, False), "scan": (i64, nb, False),
+                     "misc": (i32, 1, False)},
+            "k2": {"counts": (i32, nb * BLOCK, False),
+                   "blocked": (u8, nb * BLOCK, False),
+                   "flags": (i32, nb, False), "tickets": (i32, nb, False),
+                   "state": (u8, n, False), "out": (u8, n, False),
+                   "offsets": (i64, nb * BLOCK + 1, False)}}
+        need = {name: spec for part in parts
+                for name, spec in groups[part].items()
+                if analyze or name not in ("up_ana", "ana")}
+        views = self._take(need)
+        if views is None:
+            return None
+        if planes in views:
+            views[planes] = views[planes].view(3, n)
+        names = {name: None for group in groups.values() for name in group
+                 if name != planes}
+        names["planes"] = views.pop(planes, None)
+        return SimpleNamespace(**{**names, **views})
+
+    def idx(self, entries: int) -> torch.Tensor | None:
+        """The close-list buffer of `entries` int32, or None past the
+        device cap."""
+        views = self._take({"idx": (torch.int32, entries, False)})
+        return None if views is None else views["idx"]
+
+
+def workspace_stats() -> dict:
+    """The workspaces' memory: bytes held now (host: pinned on the card)
+    and their peaks, summed over all workspaces of the process; the ranges
+    that ran on one-off buffers; workspaces made in the stream pool."""
+    with _ws_lock:
+        out = dict(_ws_held)
+    out["made"] = _pool.workspaces_made()
+    return out
 
 
 def own_stream(device: torch.device) -> torch.cuda.ExternalStream:
@@ -520,7 +832,11 @@ class StreamPool:
     A stream goes back with its thread's last work possibly still queued
     on it. That is safe: the next holder's work on the stream runs after
     it, in stream order, and the thread synchronised the stream before it
-    read any result."""
+    read any result.
+
+    Each stream has one workspace (`workspace`), made at its first range
+    and handed on with it: the workspaces made never exceed the streams
+    made."""
 
     def __init__(self):
         self._lock = threading.RLock()  # __del__ may give back inside take
@@ -528,6 +844,7 @@ class StreamPool:
         # id -> the _ThreadStreams holding streams, held weakly: a holder
         # dies with its thread's locals, and its __del__ gives them back
         self._holders = weakref.WeakValueDictionary()
+        self._workspaces: dict = {}  # stream -> _Workspace
         self.made = 0
         self.peak_held = 0
 
@@ -570,6 +887,18 @@ class StreamPool:
             return {"made": self.made, "held": self._held(),
                     "peak_held": self.peak_held,
                     "free": sum(map(len, self._free.values()))}
+
+    def workspace(self, stream) -> _Workspace:
+        """The workspace that goes with `stream` (made at its first ask)."""
+        with self._lock:
+            ws = self._workspaces.get(stream)
+            if ws is None:
+                ws = self._workspaces[stream] = _Workspace(stream.device)
+            return ws
+
+    def workspaces_made(self) -> int:
+        with self._lock:
+            return len(self._workspaces)
 
 
 class _ThreadStreams:
@@ -674,17 +1003,23 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
                     precision: str = "f64",
                     device: torch.device | str = "cuda") -> np.ndarray | None:
     """Accept mask of one Morton-sorted range on the card, on the calling
-    thread's stream: upload from pinned memory, the pair CSR on the card
-    (None past the pair gate), the kernels, the mask download. Synchronises
-    only that stream. Returns a numpy bool array.
+    thread's stream and its workspace: one upload from the pinned buffer,
+    the prep kernels, phase A's counting pass, one synchronise that reads
+    the pair gate and the per-block close totals (None past the gate), the
+    windows of phase A's fill and phase B, one download into the pinned
+    buffer, the final synchronise. Synchronises only that stream. Returns
+    a numpy bool array.
 
-    With `trace` set, the range's record holds, for each part (upload,
-    prep, kernel, download), its stream time from CUDA events (`*_ms`), the
-    calling thread's wall time enqueueing it, synchronises inside the part
-    included (`host_*_ms`), and that thread's CPU time over the same span
+    With `trace` set, the range's record holds, for each part (upload: the
+    copy to the card; prep: the prep kernels; kernel: phase A through
+    phase B, the synchronise between included; download: the copy back),
+    its stream time from CUDA events (`*_ms`), the calling thread's wall
+    time enqueueing it, synchronises inside the part included
+    (`host_*_ms`), and that thread's CPU time over the same span
     (`cpu_*_ms`); `wait_ms` is the wall time of the final synchronise;
     `t0` and `t1` are the range's start and the end of that synchronise on
-    the host's clock (`time.perf_counter`)."""
+    the host's clock (`time.perf_counter`). With `trace` unset, no CUDA
+    event is recorded."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"range_mask_cuda needs a CUDA device, got {device}")
@@ -692,7 +1027,39 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
     if n == 0 or spacing <= 0:
         return None
     stream = thread_stream(device)
-    dtype = torch.float64 if precision == "f64" else torch.float32
+    ws = _pool.workspace(stream)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        return _range_mask(ws, positions, spacing, analyze_mask, precision,
+                           stream)
+
+
+def _range_mask(ws: _Workspace, positions: np.ndarray, spacing: float,
+                analyze_mask: np.ndarray | None, precision: str,
+                stream=None) -> np.ndarray | None:
+    """`range_mask_cuda`'s path on `ws`'s device, on the current stream
+    (`stream`, synchronised where the path waits; on the CPU the kernels'
+    plain versions run and nothing waits)."""
+    n = positions.shape[0]
+    if n >= 1 << 31:
+        raise ValueError(f"a range holds at most 2^31 - 1 points, got {n}")
+    nb = -(-n // BLOCK)
+
+    def sync():
+        if stream is not None:
+            stream.synchronize()
+
+    home = ws
+    if home.pending:  # a range before this one raised part way
+        sync()
+        home.pending = False
+    analyze = analyze_mask is not None
+    buf = ws.arrays(n, precision, analyze)
+    one_off = buf is None
+    if one_off:
+        with _ws_lock:
+            _ws_held["one_off"] += 1
+        ws = _Workspace(home.device, counted=False)
+        buf = ws.arrays(n, precision, analyze)
     records = trace
     marks = []
 
@@ -702,40 +1069,57 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
             e.record()
             marks.append((e, time.perf_counter(), time.thread_time()))
 
-    with torch.cuda.device(device), torch.cuda.stream(stream):
-        mark()
-        pos = torch.from_numpy(np.ascontiguousarray(positions,
-                                                    dtype=np.float64))
-        pos = pos.pin_memory().to(device, non_blocking=True)
-        analyze = None
-        if analyze_mask is not None:
-            analyze = torch.from_numpy(np.ascontiguousarray(
-                analyze_mask, dtype=np.uint8)).pin_memory().to(
-                    device, non_blocking=True)
-        mark()
-        planes = pos.to(dtype).t().contiguous()
-        nb = -(-n // BLOCK)
-        csr = pair_csr_torch(planes, inflation(spacing),
-                             MAX_PAIRS_PER_BLOCK * nb)
-        if csr is None:
-            return None
-        mark()
-        stats = {} if records is not None else None
-        out = accept_mask_cuda(planes, analyze,
-                               squared_spacing(spacing, precision), *csr,
-                               stats=stats)
-        mark()
-        host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        mark()
-        stream.synchronize()
-        synced = time.perf_counter()
+    fns = _kernel_fns(precision) if ws.device.type == "cuda" else None
+    pinned = fns if ws.counted else None  # the copies' entry points
+    mark()
+    np.copyto(buf.up.numpy().reshape(n, 3), positions)
+    if analyze:
+        np.copyto(buf.up_ana.numpy(), analyze_mask)
+    home.pending = True
+    _copy(pinned, buf.pos, buf.up)
+    if analyze:
+        _copy(pinned, buf.ana, buf.up_ana)
+    mark()
+    _prep(buf.pos, buf.ana, n, nb, spacing, precision, buf)
+    mark()
+    sq = squared_spacing(spacing, precision)
+    # phase A's counting pass: past the gate it returns at once on the card
+    _close_count(fns, buf.planes, n, sq, buf.ptr, buf.bj, 0, nb, buf.counts,
+                 gate=buf.head)
+    torch.sum(buf.counts.view(nb, BLOCK), dim=1, dtype=torch.int64,
+              out=buf.head[2:])
+    _copy(pinned, buf.head_host, buf.head)
+    sync()
+    head = buf.head_host.numpy()
+    if head[0]:
+        home.pending = False
+        return None
+    events = [] if records is not None else None
+
+    def take_idx(entries):
+        idx = ws.idx(entries)
+        if idx is None:
+            with _ws_lock:
+                _ws_held["one_off"] += 1
+            idx = torch.empty(entries, dtype=torch.int32, device=ws.device)
+        return idx
+
+    windows, _ = _run_windows(fns, buf.planes, n, sq, buf.ptr, buf.bj,
+                              head[2:], CLOSE_BUDGET, buf, take_idx, events,
+                              marks[-1][0] if marks else None)
+    mark()
+    _copy(pinned, buf.down, buf.out)
+    mark()
+    sync()
+    home.pending = False
+    synced = time.perf_counter()
     if records is not None:
-        record = {"n": n, "stream": stream.cuda_stream,
-                  "device": str(device),
+        record = {"n": n, "stream": getattr(stream, "cuda_stream", None),
+                  "device": str(ws.device),
                   "thread": threading.current_thread().name,
                   "t0": marks[0][1], "t1": synced,
-                  "windows": stats["windows"], **phase_ms(stats),
+                  "windows": len(windows), "one_off": one_off,
+                  **phase_ms({"events": events}),
                   "wait_ms": (synced - marks[-1][1]) * 1e3}
         for part, (a, b) in zip(("upload", "prep", "kernel", "download"),
                                 zip(marks, marks[1:])):
@@ -744,7 +1128,7 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
             record[f"cpu_{part}_ms"] = (b[2] - a[2]) * 1e3
         with _lock:
             records.append(record)
-    return host.numpy().view(bool).copy()
+    return buf.down.numpy().view(bool).copy()
 
 
 # -- the plain-torch versions ----------------------------------------------------

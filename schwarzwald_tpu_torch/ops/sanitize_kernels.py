@@ -1,26 +1,35 @@
-"""K1 and K2 through the port's entry points on the card, each against its
-plain version: the program that compute-sanitizer runs over the kernels.
+"""K1, K2 and K2's prep through the port's entry points on the card, each
+against its plain version: the program that compute-sanitizer runs over
+the kernels.
 
     python -m schwarzwald_tpu_torch.ops.sanitize_kernels [--cases a,b,...]
         [--k1-points N] [--threads T] [--poison] [--self-check]
 
-K2 (`poisson_cuda.accept_mask_cuda`) on each named case of `poisson_cases`
-in both precision modes against `accept_mask_torch`; one case sent by
-`range_mask_cuda` from T threads at once, each on its own stream, against
-the same plain mask; K1 (`morton_cuda.interleave_cuda`) on N coordinates
-with the one-hot edge rows against `interleave21`. Results must be equal
-exactly; the exit code is 0 when every check held and 1 otherwise.
-`--poison` fills every `torch.empty` of the kernels' wrappers with NaN or
-the type's largest value (`torch.utils.deterministic.fill_uninitialized_
-memory`), so that a kernel reading a slot nothing wrote changes its result;
-the plain versions run unpoisoned, outside PyTorch's deterministic mode. `--self-check` launches
+The prep kernels (`poisson_cuda.range_prep`) on each named case of
+`poisson_cases` in both precision modes against `prep_torch`, and K2
+(`poisson_cuda.accept_mask_cuda`) on the same against `accept_mask_torch`;
+one case sent by `range_mask_cuda` (the prep and K2 on the sending
+thread's workspace) from T threads at once, each on its own stream,
+against the same plain mask; the pair gate exactly at and one past its
+capacity (`gate_cases`): the prep kernels against `prep_torch` with a
+guard region after pair_bj that no write may reach, and each range sent
+through the engine's entry point, which the host kernel takes past the
+gate; K1 (`morton_cuda.interleave_cuda`) on N
+coordinates with the one-hot edge rows against `interleave21`. Results
+must be equal exactly; the exit code is 0 when every check held and 1
+otherwise. `--poison` fills every `torch.empty` of the kernels' wrappers
+(the workspaces' buffers too) with NaN or the type's largest value
+(`torch.utils.deterministic.fill_uninitialized_memory`), so that a kernel
+reading a slot nothing wrote changes its result; the plain versions run
+unpoisoned, outside PyTorch's deterministic mode. `--self-check` launches
 K1 once on 1,000 points: what a sanitizer is first run on, to learn
 whether it supports the card.
 
 chip_smoke.py (phase 8) runs this under `compute-sanitizer --tool
 memcheck|racecheck|synccheck|initcheck`, restricted to the kernels
-`interleave_kernel`, `close_kernel` and `decide_kernel`; the case builders
-here also give its phase 2 its inputs.
+`interleave_kernel`, `close_kernel`, `decide_kernel`, `prep_blocks_kernel`
+and `prep_pairs_kernel`; `poisson_cases` here also gives its phase 2 its
+inputs.
 """
 from __future__ import annotations
 
@@ -118,6 +127,104 @@ def poisson_cases(names=None) -> list:
     return cases
 
 
+GATE_CASES = ("gate_at_limit", "gate_one_past")
+GUARD = 4096  # int32 entries after pair_bj's capacity that must stay
+
+
+def ball_blocks(k: int, far: int = 0, seed: int = 3) -> np.ndarray:
+    """k blocks of points inside one spacing ball (every pair of them
+    meets at a spacing of 5), then `far` blocks each far from everything:
+    k (k - 1) / 2 cross pairs over k + far blocks."""
+    from .poisson_cuda import BLOCK
+
+    rng = np.random.default_rng(seed)
+    pos = [rng.uniform(0.0, 0.01, (k * BLOCK, 3))]
+    for f in range(far):
+        pos.append(rng.uniform(0.0, 0.01, (BLOCK, 3)) + 1000.0 * (f + 1))
+    return np.concatenate(pos)
+
+
+def gate_cases() -> list:
+    """(name, positions, spacing) of a range exactly at the pair gate (191
+    blocks: 191 * 190 / 2 = 95 * 191 cross pairs, `gate_capacity(191)`)
+    and one one past it (192 + 1 blocks: 192 * 191 / 2 = 95 * 193 + 1)."""
+    return [("gate_at_limit", ball_blocks(191), 5.0),
+            ("gate_one_past", ball_blocks(192, far=1), 5.0)]
+
+
+def guarded_prep(pos: np.ndarray, spacing: float, precision: str,
+                 device) -> tuple:
+    """The prep kernels on one range into one-off buffers of a workspace,
+    as the range path runs them, with pair_bj's capacity followed by GUARD
+    entries of -7: ((planes, pair_ptr, pair_bj, head), whether every guard
+    entry is still -7)."""
+    from . import poisson_cuda
+
+    n = pos.shape[0]
+    nb = -(-n // poisson_cuda.BLOCK)
+    cap = poisson_cuda.gate_capacity(nb)
+    p = torch.from_numpy(pos).to(device)
+    buf = poisson_cuda._Workspace(device, counted=False).arrays(
+        n, precision, False, ("prep", "k2"))
+    guarded = torch.full((cap + GUARD,), -7, dtype=torch.int32,
+                         device=device)
+    buf.bj = guarded[:cap]
+    with torch.cuda.device(device):
+        poisson_cuda._prep(p.view(-1), None, n, nb, spacing, precision, buf)
+        torch.cuda.synchronize(device)
+    return ((buf.planes, buf.ptr, buf.bj, buf.head[:2]),
+            bool((guarded[cap:] == -7).all()))
+
+
+def check_gate(case, precision: str, device) -> str:
+    """A range at or one past the pair gate: the prep kernels (poisoned
+    buffers) against `prep_torch`, the guard after pair_bj intact; in f64
+    the range sent through `device_poisson` as the engine sends it: past
+    the gate None (the host kernel takes it), `pair_gate` counted and one
+    K2 launch (the counting pass, which returns at once on the card); at
+    the gate the plain mask, in three launches a window."""
+    from . import device_poisson, poisson_cuda
+
+    name, pos, spacing = case
+    want = poisson_cuda.prep_torch(torch.from_numpy(pos).to(device), None,
+                                   spacing, precision)
+    with poisoned():
+        got, guard_kept = guarded_prep(pos, spacing, precision, device)
+    bad = prep_mismatch(got, want)
+    if bad or not guard_kept:
+        raise RuntimeError(f"prep {name} {precision}: "
+                           f"{bad or 'a write past pair_bj capacity'}")
+    gate, n_cross = want[3].tolist()
+    line = f"prep {name} {precision}: n_cross={n_cross} gate={gate}, " \
+           f"equal to the plain version, nothing written past the capacity"
+    if precision != "f64":
+        return line
+    before = poisson_cuda.snapshot()
+    with poisoned():
+        mask = device_poisson.poisson_accept_mask_device(
+            None, pos, 0.0, spacing, None, backend="cuda")
+    after = poisson_cuda.snapshot()
+    counted = {k: after[k] - before[k] for k in ("launches", "pair_gate",
+                                                  "kernel")}
+    if gate:
+        if mask is not None or counted != {"launches": 1, "pair_gate": 1,
+                                           "kernel": 0}:
+            raise RuntimeError(f"K2 {name}: past the gate the range gave "
+                               f"{'no mask' if mask is None else 'a mask'}"
+                               f" and counted {counted}")
+        return f"{line}; K2 {name}: to the host kernel, counted {counted}"
+    _, _, plain = plain_mask(pos, spacing, None, "f64", device)
+    launches = counted.pop("launches")
+    if mask is None or not np.array_equal(mask, plain.cpu().numpy().view(
+            bool)) or counted != {"pair_gate": 0, "kernel": 1} or (
+            launches < 3 or launches % 3):
+        raise RuntimeError(f"K2 {name}: at the gate the range's mask is not "
+                           f"the plain one, or it counted {counted} and "
+                           f"{launches} launches")
+    counted["launches"] = launches  # 3 a window of close lists
+    return f"{line}; K2 {name}: the plain mask, counted {counted}"
+
+
 def edge_coords(n: int, seed: int):
     """(n,) int32 random 21-bit coordinates per axis whose first rows are
     the one-hot edge rows (each bit alone, 0 and 2^21 - 1 on one axis,
@@ -156,6 +263,49 @@ def plain_mask(pos, spacing, analyze, precision, device) -> tuple:
     t = [None if a is None else torch.from_numpy(a).to(device)
          for a in (p.planes, p.analyze, p.pair_ptr, p.pair_bj)]
     return p, t, poisson_cuda.accept_mask_torch(t[0], t[1], p.sq, t[2], t[3])
+
+
+def prep_mismatch(got, want) -> str | None:
+    """What differs between two preps of one range (planes, pair_ptr,
+    pair_bj, head as `poisson_cuda.prep_torch` returns them): the planes
+    bit for bit (NaN where a point is not analyzed), the head (gate flag,
+    n_cross), pair_ptr, and pair_bj's first n_cross entries when the gate
+    is open. None when nothing does."""
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+    if got[0].dtype != want[0].dtype or not torch.equal(
+            got[0].view(bits[got[0].dtype]),
+            want[0].view(bits[want[0].dtype])):
+        return "planes"
+    if not torch.equal(got[3], want[3]):
+        return f"head {got[3].tolist()} (want {want[3].tolist()})"
+    if not torch.equal(got[1], want[1]):
+        return "pair_ptr"
+    gate, n_cross = want[3].tolist()
+    if got[2].numel() != want[2].numel() or (
+            not gate and not torch.equal(got[2][:n_cross],
+                                         want[2][:n_cross])):
+        return "pair_bj"
+    return None
+
+
+def check_prep(case, precision: str, device) -> str:
+    from . import poisson_cuda
+
+    name, pos, spacing, analyze, _, _ = case
+    p = torch.from_numpy(pos).to(device)
+    a = (None if analyze is None
+         else torch.from_numpy(analyze.astype(np.uint8)).to(device))
+    want = poisson_cuda.prep_torch(p, a, spacing, precision)
+    with poisoned():
+        got = poisson_cuda.range_prep(p, a, spacing, precision)
+        torch.cuda.synchronize(device)
+    bad = prep_mismatch(got, want)
+    if bad:
+        raise RuntimeError(f"prep {name} {precision}: {bad} differs from "
+                           f"the plain version")
+    gate, n_cross = want[3].tolist()
+    return (f"prep {name} {precision}: n_cross={n_cross} gate={gate}, "
+            f"equal to the plain version")
 
 
 def check_k2(case, precision: str, device) -> str:
@@ -237,9 +387,13 @@ def main(argv=None) -> int:
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             for name in names:
                 for precision in cases[name][5]:
+                    timed(check_prep, cases[name], precision)
                     timed(check_k2, cases[name], precision)
             if args.threads:
                 timed(check_threads, cases[THREADS_CASE], args.threads)
+            for case in gate_cases():
+                for precision in ("f64", "f32"):
+                    timed(check_gate, case, precision)
             timed(check_k1, args.k1_points)
     except RuntimeError as exc:
         print(f"sanitize_kernels: FAIL: {exc}", file=sys.stderr, flush=True)

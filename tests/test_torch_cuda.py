@@ -15,8 +15,9 @@ from schwarzwald_tpu_torch.core.aabb import AABB
 from schwarzwald_tpu_torch.core.pointbuffer import PointBuffer
 from schwarzwald_tpu_torch.io.memory import MemoryPersistence
 from schwarzwald_tpu_torch.core import morton
-from schwarzwald_tpu_torch.ops import (device, device_tiling, indexing,
-                                       morton_cuda, poisson_cuda)
+from schwarzwald_tpu_torch.ops import (device, device_poisson, device_tiling,
+                                       indexing, morton_cuda, poisson_cuda,
+                                       sanitize_kernels)
 from schwarzwald_tpu_torch.ops.sampling import SamplingStrategy
 from schwarzwald_tpu_torch.tiling import (TilerMetaParameters, TilingStrategy,
                                           make_tiling_algorithm)
@@ -258,7 +259,8 @@ def test_kernels_under_memcheck(cuda):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run(
         [tool, "--tool", "memcheck", "--error-exitcode", "1",
-         "--kernel-regex", "kns=interleave_kernel|close_kernel|decide_kernel",
+         "--kernel-regex", "kns=interleave_kernel|close_kernel|decide_kernel|"
+         "prep_blocks_kernel|prep_pairs_kernel",
          sys.executable, "-m", "schwarzwald_tpu_torch.ops.sanitize_kernels",
          "--cases", "uniform_262144", "--threads", "0", "--k1-points",
          "100003"], cwd=root, capture_output=True, text=True, timeout=600,
@@ -268,6 +270,141 @@ def test_kernels_under_memcheck(cuda):
         pytest.skip(f"{tool} refuses this card")
     assert proc.returncode == 0, out[-3000:]
     assert "ERROR SUMMARY: 0 errors" in out
+
+
+# every case of sanitize_kernels.poisson_cases, the main path's root too
+PREP_CASES = ("uniform_4096", "uniform_262144", "uniform_1500000",
+              "clustered_192000", "duplicates_262144", "analyze3_262144",
+              "dense_92160", "root_5490148")
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+@pytest.mark.parametrize("case", PREP_CASES)
+def test_prep_kernels_match_their_plain_version(cuda, precision, case):
+    """The prep kernels equal prep_torch (pair_csr_torch and _masked) on
+    the card: the planes bit for bit, the head, the pair CSR element for
+    element; two prep launches counted per call, none of K2's."""
+    from schwarzwald_tpu_torch.ops import sanitize_kernels
+
+    (_, pos, spacing, analyze, _, _), = sanitize_kernels.poisson_cases(
+        {case})
+    p = torch.from_numpy(pos).to(cuda)
+    a = (None if analyze is None
+         else torch.from_numpy(analyze.astype(np.uint8)).to(cuda))
+    before = (poisson_cuda.prep_launches, poisson_cuda.snapshot()["launches"])
+    got = poisson_cuda.range_prep(p, a, spacing, precision)
+    torch.cuda.synchronize()
+    assert (poisson_cuda.prep_launches,
+            poisson_cuda.snapshot()["launches"]) == (before[0] + 2, before[1])
+    want = poisson_cuda.prep_torch(p, a, spacing, precision)
+    assert sanitize_kernels.prep_mismatch(got, want) is None
+    assert want[3].tolist()[0] == 0
+
+
+def gate_case(name):
+    (_, pos, spacing), = [c for c in sanitize_kernels.gate_cases()
+                          if c[0] == name]
+    return pos, spacing
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+@pytest.mark.parametrize("case", sanitize_kernels.GATE_CASES)
+def test_prep_kernels_at_the_pair_gate(cuda, precision, case):
+    """Exactly at and one past pair_bj's capacity: the prep kernels give
+    prep_torch's head and pair_ptr (and pair_bj where the gate is open),
+    and write nothing into a guard region after the capacity."""
+    pos, spacing = gate_case(case)
+    got, guard_kept = sanitize_kernels.guarded_prep(pos, spacing, precision,
+                                                    cuda)
+    want = poisson_cuda.prep_torch(torch.from_numpy(pos).to(cuda), None,
+                                   spacing, precision)
+    assert sanitize_kernels.prep_mismatch(got, want) is None
+    assert guard_kept
+    cap = poisson_cuda.gate_capacity(got[1].numel() - 1)
+    assert got[3].tolist() == ([0, cap] if case == "gate_at_limit"
+                               else [1, cap + 1])
+
+
+def test_a_range_past_the_gate_goes_to_the_host_kernel(cuda):
+    """Sent as the engine sends it, a range one past the gate gives None
+    and counts pair_gate and one K2 launch (its counting pass, which
+    returns at once on the card); the thread's workspace then serves the
+    next range."""
+    pos, spacing = gate_case("gate_one_past")
+    before = poisson_cuda.snapshot()
+    assert device_poisson.poisson_accept_mask_device(
+        None, pos, 0.0, spacing, None, backend="cuda") is None
+    after = poisson_cuda.snapshot()
+    assert {k: after[k] - before[k] for k in ("launches", "pair_gate",
+                                              "kernel")} == {
+        "launches": 1, "pair_gate": 1, "kernel": 0}
+    pos = sorted_uniform(4096, 11)
+    np.testing.assert_array_equal(
+        poisson_cuda.range_mask_cuda(pos, 2.0),
+        native.poisson_sample_kernel()(pos, np.zeros(3), np.full(3, EXTENT),
+                                       2.0, None))
+
+
+def mixed_ranges(count, seed):
+    """`count` Morton-sorted ranges of 4,096 to 1,000,000 points (sizes
+    spaced evenly in log), spacings and analyze masks varied."""
+    sizes = np.geomspace(4096, 1_000_000, count).astype(int)
+    out = []
+    for k, n in enumerate(sizes):
+        extent = EXTENT * (n / 4096) ** (1 / 3)
+        pos = np.random.default_rng(seed + k).uniform(0.0, extent, (n, 3))
+        keys, pos = indexing.index_points(pos, np.zeros(3),
+                                          np.full(3, extent))
+        pos = pos[indexing.sort_by_key(keys)]
+        analyze = None if k % 3 else np.arange(n) % 4 == 0
+        out.append((pos, 1.0 + 0.5 * (k % 4), analyze, extent))
+    return out
+
+
+def test_forty_threads_of_mixed_ranges_equal_the_host_kernel(cuda):
+    """40 threads at once send ranges of 4,096 to 1,000,000 points, each
+    on its stream and workspace: every mask is the native host kernel's."""
+    import concurrent.futures as cf
+
+    ranges = mixed_ranges(40, 60)
+    host = native.poisson_sample_kernel()
+    with cf.ThreadPoolExecutor(40) as pool:
+        got = list(pool.map(lambda r: poisson_cuda.range_mask_cuda(
+            r[0], r[1], r[2]), ranges))
+    for (pos, spacing, analyze, extent), mask in zip(ranges, got):
+        np.testing.assert_array_equal(mask, host(
+            pos, np.zeros(3), np.full(3, extent), spacing, analyze))
+
+
+def test_a_second_pass_allocates_nothing(cuda):
+    """4 threads, each sending the same ranges: after the first pass no
+    device segment, pinned block or workspace byte is added by the
+    second, and the masks repeat."""
+    import concurrent.futures as cf
+    import threading
+
+    ranges = mixed_ranges(6, 80)[:5]  # 4,096 to 251,000 points
+    ready = threading.Barrier(4)
+
+    def send(_):
+        ready.wait(timeout=120)  # each worker takes one task
+        return [poisson_cuda.range_mask_cuda(pos, spacing, analyze)
+                for pos, spacing, analyze, _ in ranges]
+
+    def counts():
+        ws = poisson_cuda.workspace_stats()
+        return (torch.cuda.memory_stats()["segment.all.allocated"],
+                torch.cuda.host_memory_stats()["num_host_alloc"],
+                ws["host"], ws["device"], ws["one_off"])
+
+    with cf.ThreadPoolExecutor(4) as pool:
+        first = list(pool.map(send, range(4)))
+        warm = counts()
+        second = list(pool.map(send, range(4)))
+        assert counts() == warm
+    for a, b in zip(first + second, first[:1] * 8):
+        for m, w in zip(a, b):
+            np.testing.assert_array_equal(m, w)
 
 
 def test_wrapper_checks_its_inputs(cuda):
