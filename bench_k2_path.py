@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the MIN_DISTANCE device path's host time goes, on the input of a
-MIN_DISTANCE cell of BENCHMARK.json (md_10M_terrain_3dtiles by default),
-and that cell's tiler run in two checkouts side by side.
+"""Where a cell's tiler run spends its time, on the input of a cell of
+BENCHMARK.json (md_10M_terrain_3dtiles by default): the MIN_DISTANCE range
+path's host time, the process's start, and the run in two checkouts side
+by side.
 
     python3 bench_k2_path.py [--cell C] [--threads 1,2,4,8,default]
         [--parent DIR] [--pairs N] [--rehearse]
@@ -21,11 +22,19 @@ for md_10M_multichip4, one for the others). Steps:
      and its CPU time; the sending threads' summed wall; the allocations
      the run made (torch.cuda.memory_stats: device segments and requests;
      torch.cuda.host_memory_stats: pinned blocks made) and, where the
-     checkout has them, the workspaces' peaks;
+     checkout has them, the workspaces' peaks. The grid samplers' cells
+     send no range: their traced runs read the run alone;
   4. with --parent DIR (another checkout, e.g. the parent commit unpacked
      with git archive): one traced run of it at the default threads, then
      N pairs of untraced runs, in the order parent, this, this, parent:
      TilerProcess.run's seconds (properties.json) and the process's wall.
+
+Every run prints its points per second and its start split: the start
+(launch to TilerProcess.run), the run (properties.json's durations) and
+the run's end to the process's exit (from properties.json's modification
+time to the exit, on the wall clock), and the parts the checkout's own
+`start split:` log line names, where it has one (util/startup.py). An
+untraced run imports nothing before cli.main, as the CLI does alone.
 
 Every run's tree is held against the cell's manifest (benchmark_torch/);
 a run that exits non-zero or writes another tree fails the command. The
@@ -37,6 +46,7 @@ device's.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
 import shutil
@@ -47,8 +57,7 @@ import time
 
 import bench_torch as bt
 
-CELLS = ("md_10M_terrain_3dtiles", "md_30M_3tiles_fast",
-         "md_10M_multichip4")
+CELLS = tuple(c["name"] for c in bt.load_benchmark()["workloads"])
 WORK = os.path.join(bt.ROOT, ".bench_k2_path_work")
 PARTS = ("upload", "prep", "kernel", "download")
 DEVICE_STATS = ("segment.all.allocated", "allocation.all.allocated",
@@ -72,21 +81,33 @@ def child(argv) -> int:
     cli_args = args.cli[1:] if args.cli[:1] == ["--"] else args.cli
     sys.path.insert(0, args.root)
 
-    import torch
-
     from schwarzwald_tpu_torch import cli
-    from schwarzwald_tpu_torch.ops import poisson_cuda
+    try:  # the exit line of the start split, as the CLI's program logs it
+        from schwarzwald_tpu_torch.util import startup
+        atexit.register(startup.log_at_exit)
+    except ImportError:  # a checkout from before the start split
+        pass
 
-    poisson_cuda.reset_counters()
     if args.trace:
+        from schwarzwald_tpu_torch.ops import poisson_cuda
+
         poisson_cuda.trace = []
     t0 = time.perf_counter()
     rc = cli.main(cli_args)
     seconds = time.perf_counter() - t0
+    out = {"rc": rc, "main_s": seconds, "k2": {"launches": 0},
+           "prep_launches": 0, "ranges": 0}
+    if "torch" not in sys.modules:  # a run that never imported torch
+        with open(args.result, "w") as f:
+            json.dump(out, f)
+        return int(rc or 0)
+    import torch
+
+    from schwarzwald_tpu_torch.ops import poisson_cuda
+
     ranges, poisson_cuda.trace = poisson_cuda.trace or [], None
-    out = {"rc": rc, "main_s": seconds, "k2": poisson_cuda.snapshot(),
-           "prep_launches": getattr(poisson_cuda, "prep_launches", None),
-           "ranges": len(ranges)}
+    out.update(k2=poisson_cuda.snapshot(), ranges=len(ranges),
+               prep_launches=getattr(poisson_cuda, "prep_launches", None))
     for part in PARTS:
         for kind in ("", "host_", "cpu_"):
             key = f"{kind}{part}_ms"
@@ -122,9 +143,9 @@ def build(root: str, rehearse: bool) -> None:
 
 
 def run(work: str, root: str, cli_args: list, trace: bool, manifest: dict,
-        label: str) -> dict:
-    """One CLI run of the checkout at `root` in a fresh process; its tree
-    held against the manifest."""
+        label: str, points: int) -> dict:
+    """One CLI run of the checkout at `root` in a fresh process; its start
+    split; its tree held against the manifest."""
     out_dir = os.path.join(work, "out")
     shutil.rmtree(out_dir, ignore_errors=True)
     result = os.path.join(work, "result.json")
@@ -138,20 +159,51 @@ def run(work: str, root: str, cli_args: list, trace: bool, manifest: dict,
         proc = subprocess.run(cmd, cwd=root, env=env, stdout=f,
                               stderr=subprocess.STDOUT,
                               timeout=bt.RUN_TIMEOUT_S)
+    exited = time.time()
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"{label}: exit {proc.returncode}: "
                            f"{bt.log_tail(log)}")
     with open(result) as f:
         got = json.load(f)
-    got.update(label=label, wall_s=wall, tile_s=bt.tile_seconds(out_dir),
-               files=bt.compare_tree(out_dir, manifest["tree"]))
+    # this checkout's parser: a child of another checkout must import
+    # that checkout's package first, so this process imports it here only
+    from schwarzwald_tpu_torch.util import startup
+
+    with open(log, errors="replace") as f:
+        text = f.read()
+    tile_s = bt.tile_seconds(out_dir)
+    ended = os.stat(os.path.join(out_dir, "properties.json")).st_mtime_ns
+    exit_s = exited - ended / 1e9
+    split = startup.parse(text)
+    got.update(label=label, wall_s=wall, tile_s=tile_s,
+               points_per_s=points / wall, start_s=wall - tile_s - exit_s,
+               exit_s=exit_s, split=split,
+               files=bt.compare_tree(out_dir, manifest["tree"]),
+               # what an OpenMP runtime printed (two are loaded: the
+               # native library's and torch's)
+               omp_lines=[line for line in text.splitlines()
+                          if "OMP: " in line or "libgomp" in line])
+    if split and startup.AT_EXIT in split:
+        # the part of the exit after the interpreter's exit handlers
+        got["teardown_s"] = exited - split[startup.AT_EXIT]
     return got
 
 
 def describe(r: dict) -> str:
-    text = (f"{r['label']}: wall {r['wall_s']:.3f} s, TilerProcess.run "
-            f"{r['tile_s']:.3f} s, tree identical ({r['files']} files)")
+    text = (f"{r['label']}: {r['points_per_s']:.0f} points/s, wall "
+            f"{r['wall_s']:.3f} s: start {r['start_s']:.3f} s, "
+            f"TilerProcess.run {r['tile_s']:.3f} s, run to exit "
+            f"{r['exit_s']:.3f} s; tree identical ({r['files']} files)")
+    if r["split"]:
+        text += "\n  start split: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in r["split"].items()
+            if "(epoch)" not in k)
+    if r["omp_lines"]:
+        text += f"\n  OpenMP printed: {r['omp_lines'][:5]}"
+    if "teardown_s" in r:
+        text += (f"; of the run to exit, {r['teardown_s']:.3f} s after the "
+                 f"exit handlers")
     if not r["ranges"]:
         return text
     split = "; ".join(f"{p} {r[f'{p}_ms']:.1f} / {r[f'host_{p}_ms']:.1f} / "
@@ -213,21 +265,23 @@ def main(argv=None) -> int:
                                                  cell["traffic"], rehearse)]
         device = ["--use-device", "cpu" if rehearse else "cuda"]
         runs = [run(work, bt.ROOT, flags + ["--use-device", "host"], False,
-                    manifest, "host")]
+                    manifest, "host", points)]
         print(describe(runs[-1]), flush=True)
         for t in args.threads.split(","):
             extra = [] if t == "default" else ["--threads", t]
             runs.append(run(work, bt.ROOT, flags + device + extra, True,
-                            manifest, f"this, traced, threads {t}"))
+                            manifest, f"this, traced, threads {t}", points))
             print(describe(runs[-1]), flush=True)
         if args.parent:
             runs.append(run(work, roots["parent"], flags + device, True,
-                            manifest, "parent, traced, threads default"))
+                            manifest, "parent, traced, threads default",
+                            points))
             print(describe(runs[-1]), flush=True)
             for i in range(args.pairs):
                 for name in ("parent", "this", "this", "parent"):
                     runs.append(run(work, roots[name], flags + device, False,
-                                    manifest, f"{name}, timed, pair {i}"))
+                                    manifest, f"{name}, timed, pair {i}",
+                                    points))
                     print(describe(runs[-1]), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -243,15 +297,22 @@ def main(argv=None) -> int:
             r["wall_s"] for r in rs)
         summary[f"{name}_points_per_s_median"] = statistics.median(
             points / r["wall_s"] for r in rs)
+        for part in ("start", "exit"):
+            summary[f"{name}_{part}_s_median"] = statistics.median(
+                r[f"{part}_s"] for r in rs)
     if len(timed) == 2:
         summary["this_over_parent_points_per_s"] = (
             summary["this_points_per_s_median"]
             / summary["parent_points_per_s_median"])
         print(f"medians: parent {summary['parent_points_per_s_median']:.0f}"
               f" points/s (TilerProcess.run "
-              f"{summary['parent_tile_s_median']:.3f} s), this "
+              f"{summary['parent_tile_s_median']:.3f} s, start "
+              f"{summary['parent_start_s_median']:.3f} s, to exit "
+              f"{summary['parent_exit_s_median']:.3f} s), this "
               f"{summary['this_points_per_s_median']:.0f} points/s "
-              f"({summary['this_tile_s_median']:.3f} s): this / parent "
+              f"({summary['this_tile_s_median']:.3f} s, start "
+              f"{summary['this_start_s_median']:.3f} s, to exit "
+              f"{summary['this_exit_s_median']:.3f} s): this / parent "
               f"{summary['this_over_parent_points_per_s']:.4f}", flush=True)
     print(json.dumps(summary))
     return 0

@@ -45,6 +45,14 @@ each phase prints its seconds:
      on the card and on the host: byte-identical trees; the threads, pools
      and streams of the device ranges under phase 3's rules, with the
      streams made and torch.cuda.memory_reserved() after each batch;
+ 3c. the CLI's start: a 1M-point uniform LAS tiled at the defaults by
+     the port's CLI in a fresh process with --use-device host, then cuda;
+     byte-identical trees; the host run may not import torch, the card
+     run must have launched K2, and neither may print an OpenMP message;
+     each run's start split (util/startup.py: launch to TilerProcess.run,
+     the run, the run's end to the exit, and the parts the run logs:
+     the interpreter, the port's imports, torch's import, the CUDA
+     context, the kernel library, the native library);
   4. the batch step (kernel K1): 10M uniform float64 positions through
      encode_sort_batch on the card and the host grid coordinates through
      encode_sort_grid, against the host encode + sort + histogram; the
@@ -780,6 +788,80 @@ def phase_batched_min_distance(work: str, report: dict, card: str) -> None:
         shutil.rmtree(os.path.join(work, f"batched_{mode}"))
 
 
+# -- phase 3c: the CLI's start ---------------------------------------------------
+
+START_POINTS = 1_000_000
+STARTED = "cli start "
+# the port's CLI with its exit line (util/startup.py), then whether the
+# process imported torch and, if it did, K2's counters, on a line of their
+# own
+START_SCRIPT = ("import atexit, json, sys\n"
+                "from schwarzwald_tpu_torch import cli\n"
+                "from schwarzwald_tpu_torch.util import startup\n"
+                "atexit.register(startup.log_at_exit)\n"
+                "rc = cli.main(sys.argv[1:])\n"
+                "k2 = None\n"
+                "if 'torch' in sys.modules:\n"
+                "    from schwarzwald_tpu_torch.ops import poisson_cuda\n"
+                "    k2 = poisson_cuda.snapshot()\n"
+                f"print({STARTED!r} + json.dumps(\n"
+                "    {'torch': 'torch' in sys.modules, 'k2': k2}))\n"
+                "sys.exit(rc)\n")
+
+
+def phase_cli_start(work: str, card: str) -> None:
+    """The CLI in a fresh process, --use-device host then cuda, on a 1M
+    uniform cloud: byte-identical trees, no torch in the host run, K2 in
+    the card run, no OpenMP message; each run's start split."""
+    from schwarzwald_tpu_torch.util import startup
+
+    src = os.path.join(work, "start.las")
+    write_uniform_las(src, START_POINTS)
+    env = dict(os.environ, PYTHONPATH=ROOT, SCHWARZWALD_TPU_NO_UI="1")
+    outs = {}
+    for mode in ("host", "cuda"):
+        outs[mode] = os.path.join(work, f"start_{mode}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", START_SCRIPT, "--tiler", "-i", src, "-o",
+             outs[mode], "--use-device", mode], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        exited = time.time()
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {mode} CLI run exited "
+                               f"{proc.returncode}: {proc.stderr[-3000:]}")
+        # an OpenMP runtime's warning (the native library's libgomp now
+        # loads before torch's)
+        omp = [line for line in (proc.stdout + proc.stderr).splitlines()
+               if "OMP: " in line or "libgomp" in line]
+        if omp:
+            raise RuntimeError(f"the {mode} run printed OpenMP messages: "
+                               f"{omp[:5]}")
+        ran = json.loads([ln for ln in proc.stdout.splitlines()
+                          if ln.startswith(STARTED)][-1][len(STARTED):])
+        if ran["torch"] != (mode == "cuda"):
+            raise RuntimeError(f"the {mode} run: torch imported "
+                               f"{ran['torch']}")
+        if mode == "cuda" and not ran["k2"]["launches"]:
+            raise RuntimeError("the card run launched no K2 kernel")
+        split = startup.parse(proc.stdout)
+        run_s = split["TilerProcess.run"]
+        exit_s = exited - split[startup.RUN_END]
+        parts = ", ".join(f"{k} {v:.3f} s" for k, v in split.items()
+                          if "(epoch)" not in k)
+        print(f"cli start {mode} on {card}: wall {wall:.3f} s: start "
+              f"{wall - run_s - exit_s:.3f} s, TilerProcess.run "
+              f"{run_s:.3f} s, run to exit {exit_s:.3f} s (after the exit "
+              f"handlers {exited - split[startup.AT_EXIT]:.3f} s); parts: "
+              f"{parts}; K2 {ran['k2']}", flush=True)
+    n_files = compare_trees(outs["host"], outs["cuda"])
+    print(f"cli start: {n_files} files byte-identical (cuda vs host), "
+          f"{count_points(outs['cuda'])} points in the tiles", flush=True)
+    for out in outs.values():
+        shutil.rmtree(out)
+
+
 # -- phase 4: the batch step -------------------------------------------------------
 
 def phase_batch_step(report: dict, card: str) -> None:
@@ -1471,6 +1553,7 @@ def main() -> int:
                     smi)
         timed_phase("3b MIN_DISTANCE in 4 batches",
                     phase_batched_min_distance, work, k2, smi)
+        timed_phase("3c the CLI's start", phase_cli_start, work, smi)
         timed_phase("4 batch step", phase_batch_step, k1, smi)
         timed_phase("5 grid samplers", phase_grid_samplers, work, smi)
         timed_phase("6 multichip and multihost", phase_multichip, work, k1,

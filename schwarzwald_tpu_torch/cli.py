@@ -10,13 +10,14 @@ selection, and the converter options.
 from __future__ import annotations
 
 import argparse
+import atexit
 import re
 import sys
 
 from .core.attributes import OutputFormat, RGBMapping
 from .process.scheduler import AdaptiveThreadCount, FixedThreadCount
 from .util.errors import parse_ignore_errors
-from .util import log
+from .util import log, startup
 
 _MEMORY_SUFFIXES = {
     "B": 1, "KB": 10 ** 3, "MB": 10 ** 6, "GB": 10 ** 9, "TB": 10 ** 12,
@@ -147,6 +148,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    startup.begin()
     args = build_parser().parse_args(argv)
 
     if args.converter:
@@ -170,7 +172,13 @@ def main(argv=None) -> int:
     if args.spacing == 0 and args.diagonal_fraction == 0:
         args.diagonal_fraction = 250  # default fallback (main.cpp:412-418)
 
-    from .process.tiler_process import TilerArguments, TilerProcess
+    with startup.timed("port imports"):  # no torch (ops/device_start.py)
+        from .ops import device_start
+        from .process.tiler_process import TilerArguments, TilerProcess
+    # the card's set-up before the run and before the output is touched:
+    # cuda raises without a card, the host run imports no torch
+    device_start.set_up(device_start.resolve_use_device(args.use_device),
+                        args.sampling)
     targs = TilerArguments(
         sources=args.source,
         output_directory=args.outdir,
@@ -206,4 +214,5 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    atexit.register(startup.log_at_exit)
     sys.exit(main())

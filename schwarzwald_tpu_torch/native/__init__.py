@@ -10,12 +10,15 @@ from __future__ import annotations
 
 import functools
 
+from ..util import startup
+
 
 @functools.lru_cache(maxsize=1)
 def _lib():
     try:
         from . import loader
-        return loader.load()
+        with startup.timed("native library"):
+            return loader.load()
     except Exception:
         return None
 

@@ -27,6 +27,7 @@ import threading
 import time
 
 from ..native.loader import is_fresh
+from ..util import startup
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -89,7 +90,7 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
         return lib
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    with _library_lock(name):
+    with startup.timed("kernel libraries"), _library_lock(name):
         lib = _loaded.get(name)
         if lib is not None:
             return lib

@@ -37,19 +37,10 @@ import numpy as np
 import torch
 
 from . import sampling
+# the host engine reads the candidate levels without importing torch
+from .sampling import candidate_levels  # noqa: F401
 
 MAX_LEVELS = 21
-
-
-def candidate_levels(root_extent_x: float, spacing_at_root: float,
-                     max_depth: int):
-    """Per-node-level candidate grid level (static, computed on host).
-    Index i corresponds to node level i-1 (root = -1)."""
-    out = []
-    for node_level in range(-1, min(MAX_LEVELS - 1, max_depth) + 1):
-        spacing = sampling.spacing_at_node_level(spacing_at_root, node_level)
-        out.append(sampling.candidate_level_in_octree(root_extent_x, spacing))
-    return out
 
 
 def jittered_static_config(root_extent_x: float, spacing_at_root: float,

@@ -37,6 +37,10 @@ from .permutations import (NUM_PERMUTATIONS, PERMUTATIONS_16, PERMUTATIONS_32,
 
 _U = np.uint64
 
+# the samplers whose device path is the octree sweep (ops/device_tiling.py);
+# the Poisson samplers' device path is their kernel (ops/poisson_cuda.py)
+GRID_SAMPLERS = ("RANDOM_GRID", "GRID_CENTER", "JITTERED")
+
 
 class SamplingBehaviour(enum.Enum):
     """Sampling.h:170-181."""
@@ -101,6 +105,17 @@ def candidate_level_in_octree(root_extent_x: float, spacing_at_node: float) -> i
 def spacing_at_node_level(spacing_at_root: float, node_level: int) -> float:
     """spacing_at_root / 2^(node_level+1), double math (Sampling.h:210-211)."""
     return spacing_at_root / math.pow(2, node_level + 1)
+
+
+def candidate_levels(root_extent_x: float, spacing_at_root: float,
+                     max_depth: int):
+    """Per-node-level candidate grid level (static, computed on host).
+    Index i corresponds to node level i-1 (root = -1)."""
+    out = []
+    for node_level in range(-1, min(morton.MAX_LEVELS - 1, max_depth) + 1):
+        spacing = spacing_at_node_level(spacing_at_root, node_level)
+        out.append(candidate_level_in_octree(root_extent_x, spacing))
+    return out
 
 
 def _take_all(behaviour: SamplingBehaviour, n: int, max_points: int) -> bool:

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -86,10 +87,12 @@ def _distributed_initialized() -> bool:
     """True only when the caller has initialized a torch.distributed
     process group. The probe initializes nothing: planning never starts a
     process group and never touches CUDA, so the filesystem-coordinated
-    multihost path plans without any device."""
-    import torch.distributed as dist
-
-    return dist.is_available() and dist.is_initialized()
+    multihost path plans without any device. A caller that initialized a
+    group has imported torch.distributed, so the probe imports no torch
+    (the host run imports none)."""
+    dist = sys.modules.get("torch.distributed")
+    return (dist is not None and dist.is_available()
+            and dist.is_initialized())
 
 
 def all_reduce_bounds(local_bounds: AABB) -> AABB:
@@ -103,11 +106,12 @@ def all_reduce_bounds(local_bounds: AABB) -> AABB:
     cubic roots, different Morton keys, silently corrupt merged output), so
     its failure raises. With NCCL the gathered tensor lives on the group's
     device (the caller's current CUDA device), with gloo on the CPU."""
+    if not (_distributed_initialized()
+            and sys.modules["torch.distributed"].get_world_size() > 1):
+        return AABB(local_bounds.min, local_bounds.max)
     import torch
     import torch.distributed as dist
 
-    if not (_distributed_initialized() and dist.get_world_size() > 1):
-        return AABB(local_bounds.min, local_bounds.max)
     device = (torch.device("cuda", torch.cuda.current_device())
               if dist.get_backend() == "nccl" else torch.device("cpu"))
     mine = torch.tensor(np.concatenate([local_bounds.min, local_bounds.max]),

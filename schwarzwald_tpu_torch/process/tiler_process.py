@@ -31,7 +31,7 @@ from ..io.point_source import MultiReaderPointSource
 from ..io.srs import make_transform
 from ..ops.sampling import SamplingStrategy
 from ..tiling import TilerMetaParameters, TilingStrategy
-from ..util import log
+from ..util import log, startup
 from ..util.errors import IgnoreErrors, chain_error
 from ..util.progress import INDEXING, LOADING, ProgressReporter
 from .scheduler import AdaptiveThreadCount, FixedThreadCount
@@ -66,7 +66,7 @@ class TilerArguments:
     resume: bool = False
     # Device selection (cuda/cpu/host): with a device, the grid samplers
     # run the octree sweep and MIN_DISTANCE* ranges the Poisson kernels;
-    # host is the native host run (ops/device.resolve_use_device).
+    # host is the native host run (ops/device_start.resolve_use_device).
     use_device: str = "cuda"
     # In-memory node cache size in bytes (--cache-size); see
     # TilerMetaParameters.cache_size_bytes. Default matches the CLI's
@@ -278,12 +278,15 @@ class TilerProcess:
     # -- run ----------------------------------------------------------------
 
     def run(self) -> PerformanceStats:
-        from ..ops.device import resolve_use_device
+        from ..ops import device_start
         from ..util.config import configure
 
         prepare_start = time.perf_counter()
-        # resolved before the output is touched: cuda raises without a card
-        use_device = resolve_use_device(self.args.use_device)
+        # resolved and set up before the output is touched (cli.main has
+        # done both already): cuda raises without a card, and the host run
+        # imports no torch
+        use_device = device_start.resolve_use_device(self.args.use_device)
+        device_start.set_up(use_device, self.args.sampling_strategy)
 
         files = [p for p in self._expand_sources() if self._check_file(p)]
         if not files:
@@ -600,4 +603,6 @@ class TilerProcess:
                      f"be indexed)")
         else:
             log.info(f"Tiler finished - Indexed {indexed} points")
+        startup.add("TilerProcess.run", time.perf_counter() - prepare_start)
+        startup.log_split()
         return stats

@@ -34,8 +34,7 @@ from ..core.aabb import AABB, octant_bounds
 from ..core.node import NodeStructure
 from ..core.pointbuffer import PointBuffer
 from ..ops import indexing, sampling
-from ..ops.device import GRID_SAMPLERS
-from ..ops.sampling import SamplingBehaviour, SamplingStrategy
+from ..ops.sampling import GRID_SAMPLERS, SamplingBehaviour, SamplingStrategy
 from .arena import PointArena
 from .meta import TilerMetaParameters, TilingStrategy
 
@@ -624,8 +623,6 @@ class TilingAlgorithmBase:
     def _sweep_is_terminal(self, node_level: int, root) -> bool:
         """Host-side replica of octree_select_grid's terminal rule for a
         node at sweep level `node_level` (persist-order decisions)."""
-        from ..ops import device_tiling
-
         max_level = min(MAX_OCTREE_LEVELS - 1, root.max_depth)
         if self.sampling_strategy.name in ("JITTERED", "MIN_DISTANCE",
                                            "MIN_DISTANCE_FAST"):
@@ -633,7 +630,7 @@ class TilingAlgorithmBase:
             # 29-47), so requires_deeper never holds and terminality is
             # purely the max-level rule.
             return node_level >= max_level
-        cands = device_tiling.candidate_levels(
+        cands = sampling.candidate_levels(
             float(root.bounds.extent()[0]), root.max_spacing, root.max_depth)
         cand = cands[node_level + 1]
         return (node_level >= max_level if cand > node_level
@@ -738,8 +735,7 @@ class TilingAlgorithmBase:
         root_ext_x = float(root.bounds.extent()[0])
         cands = None
         if name in ("MIN_DISTANCE_FAST", "RANDOM_GRID", "GRID_CENTER"):
-            from ..ops import device_tiling
-            cands = device_tiling.candidate_levels(
+            cands = sampling.candidate_levels(
                 root_ext_x, root.max_spacing, root.max_depth)
         elif name == "JITTERED":
             # per-level REQUIRED index depth via the reference's
