@@ -5,7 +5,7 @@ path's host time, the process's start, and the run in two checkouts side
 by side.
 
     python3 bench_k2_path.py [--cell C] [--threads 1,2,4,8,default]
-        [--parent DIR] [--pairs N] [--rehearse]
+        [--parent DIR] [--pairs N] [--host-pairs N] [--rehearse]
 
 Run from the root of a checkout on a machine with the cell's cards (four
 for md_10M_multichip4, one for the others). Steps:
@@ -18,8 +18,12 @@ for md_10M_multichip4, one for the others). Steps:
   3. for each --threads value, one CLI run of this checkout on the card in
      a fresh process with K2's range trace on (ops/poisson_cuda.trace):
      per part of a range (upload, prep, kernel, download), summed over the
-     ranges, the stream time (CUDA events), the sending thread's wall time
-     and its CPU time; the sending threads' summed wall; the allocations
+     ranges, the stream time (CUDA events), the sending thread's wall time,
+     its CPU time, and the wall that neither explains (per range
+     max(0, wall - max(stream, CPU)), summed); the sending threads' summed
+     wall. Every such sum adds up concurrent threads, so it can exceed the
+     run's wall; and a stream span between two events holds the time the
+     stream waited for its thread to enqueue the next step. The allocations
      the run made (torch.cuda.memory_stats: device segments and requests;
      torch.cuda.host_memory_stats: pinned blocks made) and, where the
      checkout has them, the workspaces' peaks. The grid samplers' cells
@@ -27,7 +31,10 @@ for md_10M_multichip4, one for the others). Steps:
   4. with --parent DIR (another checkout, e.g. the parent commit unpacked
      with git archive): one traced run of it at the default threads, then
      N pairs of untraced runs, in the order parent, this, this, parent:
-     TilerProcess.run's seconds (properties.json) and the process's wall.
+     TilerProcess.run's seconds (properties.json) and the process's wall;
+  5. with --host-pairs N: N pairs of untraced runs of this checkout in the
+     order host, card, card, host (the card run against the host run in
+     one call).
 
 Every run prints its points per second and its start split: the start
 (launch to TilerProcess.run), the run (properties.json's durations) and
@@ -112,6 +119,8 @@ def child(argv) -> int:
         for kind in ("", "host_", "cpu_"):
             key = f"{kind}{part}_ms"
             out[key] = sum(r.get(key, 0.0) for r in ranges)
+        out[f"unexplained_{part}_ms"] = sum(unexplained_ms(r, part)
+                                            for r in ranges)
     out["sender_wall_ms"] = sum((r["t1"] - r["t0"]) * 1e3 for r in ranges)
     out["wait_ms"] = sum(r.get("wait_ms", 0.0) for r in ranges)
     out["threads"] = len({r["thread"] for r in ranges})
@@ -129,6 +138,17 @@ def child(argv) -> int:
     with open(args.result, "w") as f:
         json.dump(out, f)
     return int(rc or 0)
+
+
+def unexplained_ms(record: dict, part: str) -> float:
+    """The wall of one part of one traced range that neither its stream
+    time nor its thread's CPU time explains: max(0, wall - max(stream,
+    CPU)). Time the thread waited (for the interpreter lock, the host's
+    scheduler, or in a synchronise) that the stream's span does not
+    cover."""
+    wall = record.get(f"host_{part}_ms", 0.0)
+    return max(0.0, wall - max(record.get(f"{part}_ms", 0.0),
+                               record.get(f"cpu_{part}_ms", 0.0)))
 
 
 def build(root: str, rehearse: bool) -> None:
@@ -207,12 +227,17 @@ def describe(r: dict) -> str:
     if not r["ranges"]:
         return text
     split = "; ".join(f"{p} {r[f'{p}_ms']:.1f} / {r[f'host_{p}_ms']:.1f} / "
-                      f"{r[f'cpu_{p}_ms']:.1f}" for p in PARTS)
+                      f"{r[f'cpu_{p}_ms']:.1f} / "
+                      f"{r.get(f'unexplained_{p}_ms', 0.0):.1f}"
+                      for p in PARTS)
     text += (f"\n  {r['ranges']} ranges from {r['threads']} threads, K2 "
              f"launches {r['k2']['launches']}, prep launches "
-             f"{r['prep_launches']}; per part, stream / wall / CPU ms "
-             f"summed: {split}; final synchronise {r['wait_ms']:.1f}; "
-             f"sending threads' wall {r['sender_wall_ms']:.1f} ms")
+             f"{r['prep_launches']}; per part, stream / wall / CPU / "
+             f"unexplained wall ms summed over the ranges: {split} "
+             f"(unexplained in all "
+             f"{sum(r.get(f'unexplained_{p}_ms', 0.0) for p in PARTS):.1f});"
+             f" final synchronise {r['wait_ms']:.1f}; sending threads' wall "
+             f"{r['sender_wall_ms']:.1f} ms")
     for key in ("device", "pinned", "workspaces", "streams"):
         if key in r:
             text += f"\n  {key}: {r[key]}"
@@ -228,6 +253,7 @@ def main(argv=None) -> int:
     ap.add_argument("--threads", default="1,2,4,8,default")
     ap.add_argument("--parent", default=None)
     ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--host-pairs", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true")
     args = ap.parse_args(argv)
     work = WORK
@@ -283,6 +309,12 @@ def main(argv=None) -> int:
                                     manifest, f"{name}, timed, pair {i}",
                                     points))
                     print(describe(runs[-1]), flush=True)
+        for i in range(args.host_pairs):
+            for name in ("host", "card", "card", "host"):
+                runs.append(run(work, bt.ROOT, flags + (
+                    ["--use-device", "host"] if name == "host" else device),
+                    False, manifest, f"{name}, timed, pair {i}", points))
+                print(describe(runs[-1]), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary = {"points": points, "runs": runs}
@@ -300,7 +332,17 @@ def main(argv=None) -> int:
         for part in ("start", "exit"):
             summary[f"{name}_{part}_s_median"] = statistics.median(
                 r[f"{part}_s"] for r in rs)
-    if len(timed) == 2:
+    if "host" in timed:
+        # each card run against the host run beside it in its pair
+        summary["card_minus_host_tile_s_median"] = statistics.median(
+            c["tile_s"] - h["tile_s"]
+            for c, h in zip(timed["card"], timed["host"]))
+        print(f"medians: host TilerProcess.run "
+              f"{summary['host_tile_s_median']:.3f} s, card "
+              f"{summary['card_tile_s_median']:.3f} s; card minus host, "
+              f"run by run: {summary['card_minus_host_tile_s_median']:.3f} s",
+              flush=True)
+    if "parent" in timed:
         summary["this_over_parent_points_per_s"] = (
             summary["this_points_per_s_median"]
             / summary["parent_points_per_s_median"])
