@@ -153,12 +153,15 @@ def unexplained_ms(record: dict, part: str) -> float:
 
 def build(root: str, rehearse: bool) -> None:
     """The kernels of the checkout at `root`, built in a process of their
-    own (so the runs find them up to date)."""
+    own (so the runs find them up to date): each csrc/*.cu it has."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "from schwarzwald_tpu_torch import native; native._lib()")
     if not rehearse:
+        csrc = os.path.join(root, "schwarzwald_tpu_torch", "csrc")
+        names = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
         code += ("; from schwarzwald_tpu_torch.ops._cuda_build import "
-                 "load_kernel_library as k; k('poisson'); k('morton')")
+                 "load_kernel_library as k; "
+                 + "; ".join(f"k({name!r})" for name in names))
     subprocess.run([sys.executable, "-c", code, root], check=True, cwd=root)
 
 

@@ -381,8 +381,9 @@ def load_manifest(cell: str, seed: int, rehearse: bool) -> dict:
 
 def build_kernels(rehearse: bool) -> tuple:
     """Build what the cell runs: the native host kernels and, on the card,
-    csrc/poisson.cu and csrc/morton.cu, all at once. Returns (seconds,
-    whether any library was built rather than found up to date)."""
+    csrc/poisson.cu, csrc/morton.cu and csrc/sweep.cu, all at once.
+    Returns (seconds, whether any library was built rather than found up
+    to date)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from schwarzwald_tpu_torch import native
@@ -391,11 +392,11 @@ def build_kernels(rehearse: bool) -> tuple:
 
     t0 = time.perf_counter()
     native_built = not loader.is_fresh(loader._SO, loader._SRCS)
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(native._lib)]
         if not rehearse:
             jobs += [pool.submit(_cuda_build.load_kernel_library, name)
-                     for name in ("poisson", "morton")]
+                     for name in ("poisson", "morton", "sweep")]
         if jobs[0].result() is None:
             raise RuntimeError("the native host kernels did not build")
         for job in jobs[1:]:

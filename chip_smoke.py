@@ -8,8 +8,9 @@ sm_90a), nvcc and g++. Phases, in order; any failure exits non-zero, and
 each phase prints its seconds:
 
   1. environment: torch, the card, its power limit; build every kernel of
-     the port from the checkout's sources, all at once (csrc/poisson.cu and
-     csrc/morton.cu with nvcc, the native host kernels with g++);
+     the port from the checkout's sources, all at once (csrc/poisson.cu,
+     csrc/morton.cu and csrc/sweep.cu with nvcc, the native host kernels
+     with g++);
   2. each kernel against its plain-torch version on the card: K2 (Poisson,
      phase A's close lists and phase B's decisions) on Morton-sorted ranges
      (uniform up to 1.5M points, clustered, duplicates, a ::3 analyze mask,
@@ -24,7 +25,14 @@ each phase prints its seconds:
      distance tests) and its share of each, and the peak scratch. K1
      (Morton interleave) on 10M and 10,000,001 random coordinates with
      one-hot edge rows, also against the host encode, timed with CUDA
-     events. Results must be equal exactly;
+     events. X2 (the grid samplers' octree sweep) against
+     octree_select_grid_torch under RANDOM_GRID, GRID_CENTER and JITTERED
+     on sanitize_kernels.sweep_cases (a 4M-point clustered group at
+     min_node_level -1 and 2, one point, equal keys, exact distance ties,
+     cells across the kernel's blocks, a plan that stops at re-rooting
+     depths, max_points above n), every int8 level; the 4M groups timed
+     (CUDA events) beside the plain version and the bound, with the
+     launches per sweep. Results must be equal exactly;
   3. the MIN_DISTANCE main path (kernel K2): a 10M-point uniform LAS tiled
      at the defaults (FAST, MIN_DISTANCE, 3D Tiles, 20,000 points per node,
      spacing = diagonal/250) with use_device="cuda" and "host"; the trees
@@ -62,7 +70,9 @@ each phase prints its seconds:
      (25 clusters) with GRID_CENTER and JITTERED, each with
      use_device="cuda" and on the host; byte-identical trees, device sweeps
      persisted, fresh start nodes above 20,000 points, no re-rooted range,
-     and levels assigned at 3 or more depths;
+     levels assigned at 3 or more depths, and X2 launched in every card
+     run (its count set to 0 just before each run) and never in a host
+     run;
   6. multichip and multihost: dryrun_multichip(4) on the card (K1 once per
      shard, the lossless exchange, a miniature tile against single-device
      FAST); phase 3's 10M uniform cloud tiled with MIN_DISTANCE over 4
@@ -70,7 +80,8 @@ each phase prints its seconds:
      clustered cloud with RANDOM_GRID, each byte-identical to the one-card
      run at start level 3, with the exchange's synchronised time per batch,
      the points per shard, K2's launches and device ranges, the sweep time
-     per owner; the uniform cloud as two 5M files tiled by two CLI
+     per owner and X2's launches (every owner's sweep through the kernel on
+     a card); the uniform cloud as two 5M files tiled by two CLI
      processes (--multihost 0 2 and 1 2) sharing the card, and again on the
      host: the two trees byte-identical, .mh-exchange/ gone, every point
      once at and below the start level;
@@ -86,14 +97,16 @@ each phase prints its seconds:
   8. the sanitizers: the kernels' checker (ops/sanitize_kernels.py: the
      prep kernels and K2 on six phase 2 cases in both modes, one of them
      from 8 threads at once, the prep at and one past the pair gate with a
-     guard after pair_bj, and K1 at 10,000,001 points, each against its
-     plain version) run with every torch.empty poisoned, then under compute-sanitizer's memcheck,
-     racecheck, synccheck and initcheck (each in its own process, limited
-     to K1's, K2's and the prep's kernels, with its own timeout), after a
+     guard after pair_bj, X2 on every phase 2 case under each grid sampler
+     with a guard after its output, and K1 at 10,000,001 points, each
+     against its plain version) run with every torch.empty poisoned, then
+     under compute-sanitizer's memcheck, racecheck, synccheck and initcheck
+     (each in its own process, limited to K1's, K2's, the prep's and X2's
+     kernels, with its own timeout), after a
      self-check
      that learns whether the tool supports the card; a tool that refuses
      the card is reported, any other error or a timeout fails;
-  9. the summary: one JSON line for the kernels, K1, K2 and K2's prep
+  9. the summary: one JSON line for the kernels, K1, K2, K2's prep and X2
      (with each kernel's launches on every path that ran it and the
      sanitizers' results), then the result line.
 
@@ -115,6 +128,8 @@ GRID_SMALL_POINTS = 1_000_000   # GRID_CENTER and JITTERED runs
 TIMING_CASE = "uniform_262144"  # the K2 row's ms / plain_ms
 K1_SIZES = (10_000_000, 10_000_001)
 BATCHED_CACHE = 2_500_000       # phase 3b: the 10M cloud in 4 batches
+CUDA_SOURCES = ("poisson", "morton", "sweep")  # csrc/<name>.cu
+SWEEP_TIMING_CASE = "clustered_4M_level2"      # the X2 row's ms / plain_ms
 TRACED_RANGES: list = []        # every traced device range of the process
 
 
@@ -198,7 +213,8 @@ def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from schwarzwald_tpu_torch import native
-    from schwarzwald_tpu_torch.ops import _cuda_build, morton_cuda, poisson_cuda
+    from schwarzwald_tpu_torch.ops import (_cuda_build, device_tiling,
+                                           morton_cuda, poisson_cuda)
 
     def build_native():
         t0 = time.perf_counter()
@@ -206,19 +222,18 @@ def phase_build() -> None:
             raise RuntimeError("native host kernels did not build")
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(1 + 3 * len(CUDA_SOURCES)) as pool:
         host = pool.submit(build_native)
         cuda = [pool.submit(_cuda_build.load_kernel_library, name)
-                for name in ("poisson", "morton")]
+                for name in CUDA_SOURCES]
         sass = {(name, lineinfo): pool.submit(kernel_sass, name, lineinfo)
-                for name in ("poisson", "morton")
-                for lineinfo in (True, False)}
+                for name in CUDA_SOURCES for lineinfo in (True, False)}
         seconds = host.result()
         for f in cuda:
             f.result()
         sass = {key: f.result() for key, f in sass.items()}
     print(f"build: native host kernels {seconds:.1f} s", flush=True)
-    for name in ("poisson", "morton"):
+    for name in CUDA_SOURCES:
         with_lines, without = sass[name, True], sass[name, False]
         if with_lines is None:
             print(f"build: csrc/{name}.cu -lineinfo not checked: no "
@@ -236,7 +251,8 @@ def phase_build() -> None:
     for precision in ("f64", "f32"):
         poisson_cuda._kernel_fns(precision)
     morton_cuda._kernel_fn()
-    for name in ("poisson", "morton"):
+    device_tiling._kernel_fn()
+    for name in CUDA_SOURCES:
         info = _cuda_build.build_info[name]
         print(f"build: csrc/{name}.cu {info['seconds']:.1f} s (nvcc "
               f"{' '.join(_cuda_build.NVCC_FLAGS)})", flush=True)
@@ -512,6 +528,102 @@ def phase_morton_kernel(report: dict) -> None:
             report.update(ms=k_ms, plain_ms=plain_ms,
                           bound_ms=20 * n / HBM_BYTES_PER_S * 1e3,
                           bound_by="bytes")
+    report["max_abs_err"] = max_err
+
+
+def sweep_bound(plan: list, levels, n: int, distance: bool) -> dict:
+    """The least time of one X2 call on these inputs: the bytes (the 8-byte
+    key and, for the distance samplers, the three float64 coordinates in,
+    one level byte out, per point) over the memory rate, and the f64
+    operations of the distances this run's data needs (each point still
+    remaining at a level that picks by distance, once) over the f64 peak.
+    A distance costs 15 operations per halving step of its cell's bounds
+    (a subtraction, a division, a product and two sums per axis), 9 for a
+    cell's centre or 23 for a jitter target, and 8 for the squared
+    distance."""
+    import numpy as np
+
+    from schwarzwald_tpu_torch.ops.device_tiling import (PICK_CENTER,
+                                                         PICK_FIRST)
+
+    n_bytes = n * (8 + 1 + (24 if distance else 0))
+    counts = np.bincount(levels.astype(np.int64), minlength=32)
+    ops = 0
+    for lv in plan:
+        if lv["terminal"] or lv["pick"] == PICK_FIRST:
+            continue
+        remaining = int(counts[0] + counts[lv["node_level"] + 2:].sum())
+        extra = 9 if lv["pick"] == PICK_CENTER else 23
+        ops += remaining * (15 * max(lv["depth"], 0) + extra + 8)
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / PEAK_FLOPS["f64"] * 1e3
+    return {"bound_ms": max(byte_ms, op_ms), "byte_ms": byte_ms,
+            "op_ms": op_ms,
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def phase_sweep_kernel(report: dict) -> None:
+    """X2 against its plain version on the card, every int8 level equal,
+    under each grid sampler on each case of sanitize_kernels.sweep_cases;
+    the two 4M-point groups timed (CUDA events) beside the plain version
+    and the bound."""
+    import torch
+
+    from schwarzwald_tpu_torch.ops import device_tiling
+    from schwarzwald_tpu_torch.ops.sanitize_kernels import (SWEEP_SAMPLERS,
+                                                            sweep_args,
+                                                            sweep_cases)
+
+    t0 = time.perf_counter()
+    cases = sweep_cases()
+    print(f"kernel sweep: cases drawn in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    max_err = 0
+    for case in cases:
+        for sampler in SWEEP_SAMPLERS:
+            key, args, kw = sweep_args(case, sampler, torch.device("cuda"))
+            n = key.shape[0]
+
+            def kernel():
+                return device_tiling.octree_select_grid_cuda(key, *args,
+                                                             **kw)
+
+            def plain():
+                return device_tiling.octree_select_grid_torch(key, *args,
+                                                              **kw)
+
+            before = device_tiling.snapshot()["x2_launches"]
+            got = synced(kernel)[0]
+            launches = device_tiling.snapshot()["x2_launches"] - before
+            want = synced(plain)[0]
+            err = int((got.to(torch.int16) - want.to(torch.int16)).abs()
+                      .max()) if n else 0
+            max_err = max(max_err, err)
+            line = (f"kernel sweep {case[0]} {sampler}: n={n} "
+                    f"launches={launches} max_abs_err={err}")
+            if n >= 1_000_000:
+                _, k_ms = event_ms(kernel, launches=10)
+                _, plain_ms = event_ms(plain, launches=2)
+                plan = device_tiling.level_plan(
+                    sampler, args[0], args[2], kw.get("jit_cfgs"),
+                    kw["min_node_level"])
+                bound = sweep_bound(plan, want.cpu().numpy(), n,
+                                    sampler != "RANDOM_GRID")
+                line += (f" kernel_ms={k_ms:.3f} plain_ms={plain_ms:.3f} "
+                         f"bound_ms={bound['bound_ms']:.4f} (bytes "
+                         f"{bound['byte_ms']:.4f}, f64 operations "
+                         f"{bound['op_ms']:.4f}; kernel at "
+                         f"{bound['bound_ms'] / k_ms:.1%} of it)")
+                if (case[0], sampler) == (SWEEP_TIMING_CASE, "RANDOM_GRID"):
+                    report.update(ms=k_ms, plain_ms=plain_ms,
+                                  bound_ms=bound["bound_ms"],
+                                  bound_by=bound["bound_by"])
+            print(line, flush=True)
+            if err or not torch.equal(got, want):
+                raise RuntimeError(f"X2 {case[0]} {sampler}: the kernel's "
+                                   f"levels differ from the plain version")
+            if launches <= 0:
+                raise RuntimeError(f"X2 {case[0]} {sampler}: no launch")
     report["max_abs_err"] = max_err
 
 
@@ -947,7 +1059,9 @@ def write_clustered_las(path: str, n: int, seed: int) -> None:
     las.write_las(path, PointBuffer(pos), AABB([0.0] * 3, [1000.0] * 3))
 
 
-def phase_grid_samplers(work: str, card: str) -> None:
+def phase_grid_samplers(work: str, x2: dict, card: str) -> None:
+    """The grid samplers' main path, each run's X2 launches counted from 0
+    just before it: above 0 on the card, 0 on the host."""
     import torch
 
     from schwarzwald_tpu_torch.ops import device_tiling
@@ -997,22 +1111,30 @@ def phase_grid_samplers(work: str, card: str) -> None:
             proc = TilerProcess(TilerArguments(
                 sources=[src], output_directory=out, diagonal_fraction=250,
                 sampling_strategy=sampler, use_device=mode))
+            device_tiling.reset_counters()
             t0 = time.perf_counter()
             try:
                 proc.run()
             finally:
                 seconds = time.perf_counter() - t0
+                launches = device_tiling.snapshot()["x2_launches"]
                 device_tiling.octree_select_grid = select
                 TilingAlgorithmFast._device_fresh_sweep_pipelined = pipelined
             rates[mode] = n / seconds
             stats = proc.device_stats
             print(f"grid {sampler} {mode}: {seconds:.2f} s, "
-                  f"{rates[mode]:.0f} points/s on {card}; {stats}",
-                  flush=True)
+                  f"{rates[mode]:.0f} points/s on {card}; {stats}; X2 "
+                  f"launches {launches}", flush=True)
             if mode == "host":
-                if sweeps or stats["device_sweeps_ok"]:
+                if sweeps or stats["device_sweeps_ok"] or launches:
                     raise RuntimeError("the host run ran the device sweep")
                 continue
+            x2["launches_by_path"][f"5 {sampler}"] = launches
+            if sampler == "RANDOM_GRID":
+                x2["launches"] = launches
+            if launches <= 0:
+                raise RuntimeError(f"{sampler}: the card run launched no "
+                                   f"X2 kernel")
             levels = sorted({lv for _, _, lvs in sweeps for lv in lvs})
             big = sum(1 for s in fresh_sizes if s > 20_000)
             print(f"grid {sampler} cuda: {len(fresh_sizes)} fresh start "
@@ -1128,7 +1250,8 @@ def run_hosts(files, out: str, use_device: str, card: str) -> tuple:
     return seconds, launches
 
 
-def phase_multichip(work: str, k1: dict, k2: dict, card: str) -> None:
+def phase_multichip(work: str, k1: dict, k2: dict, x2: dict,
+                    card: str) -> None:
     """dryrun_multichip(4); the 10M MIN_DISTANCE and RANDOM_GRID runs over
     4 shards against the single-card runs at start level 3, byte for byte;
     two --multihost CLI processes on the card against two on the host."""
@@ -1255,6 +1378,7 @@ def phase_multichip(work: str, k1: dict, k2: dict, card: str) -> None:
                            ("single", {"fixed_start_level": START_LEVEL})):
         sweeps.clear()
         device_tiling.octree_select_grid = timed_select
+        device_tiling.reset_counters()
         try:
             proc, seconds = tile_once(src, os.path.join(work, f"rg_{label}"),
                                       use_device="cuda",
@@ -1262,15 +1386,23 @@ def phase_multichip(work: str, k1: dict, k2: dict, card: str) -> None:
                                       **options)
         finally:
             device_tiling.octree_select_grid = select
+            launches = device_tiling.snapshot()["x2_launches"]
         stats = proc.device_stats
         print(f"multichip RANDOM_GRID {label}: {seconds:.2f} s, "
               f"{MAIN_PATH_POINTS / seconds:.0f} points/s on {card}; "
-              f"{stats}", flush=True)
+              f"{stats}; X2 launches {launches}", flush=True)
         for g, (dev, pts, s) in enumerate(sweeps):
             print(f"multichip RANDOM_GRID {label}: sweep {g} on {dev}: "
                   f"{pts} points {s * 1e3:.1f} ms on {card}", flush=True)
         if stats["device_sweeps_ok"] <= 0:
             raise RuntimeError(f"RANDOM_GRID {label}: no device sweep")
+        if launches <= 0 or any(not dev.startswith("cuda")
+                                for dev, _, _ in sweeps):
+            raise RuntimeError(f"RANDOM_GRID {label}: a sweep did not run "
+                               f"the X2 kernel on a card")
+        if label == "multichip":
+            x2["launches_by_path"][f"6 RANDOM_GRID --multichip {SHARDS}"] = \
+                launches
     n_files = compare_trees(os.path.join(work, "rg_multichip"),
                             os.path.join(work, "rg_single"))
     print(f"multichip RANDOM_GRID: {n_files} files byte-identical "
@@ -1400,7 +1532,8 @@ def phase_sinks_and_converter(work: str, k2: dict, card: str) -> None:
 
 SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 SANITIZED_KERNELS = ("kns=interleave_kernel|close_kernel|decide_kernel|"
-                     "prep_blocks_kernel|prep_pairs_kernel")
+                     "prep_blocks_kernel|prep_pairs_kernel|init_kernel|"
+                     "count_kernel|nearest_kernel")
 SANITIZER_TIMEOUT_S = 300
 REFUSED = "Device not supported"
 
@@ -1434,7 +1567,7 @@ def sanitizer_errors(output: str) -> str:
     return lines[-1] if lines else "no summary line"
 
 
-def phase_sanitizers(k1: dict, k2: dict) -> None:
+def phase_sanitizers(k1: dict, k2: dict, x2: dict) -> None:
     """The checker alone with every torch.empty poisoned, then under each
     compute-sanitizer tool: a self-check first (one K1 launch), then the
     whole checker, each tool in its own process with its own timeout.
@@ -1444,7 +1577,8 @@ def phase_sanitizers(k1: dict, k2: dict) -> None:
 
     rc, seconds, out = run_checker([], ["--poison"], SANITIZER_TIMEOUT_S)
     for line in out.splitlines():
-        if line.startswith(("K1 ", "K2 ", "prep ", "sanitize_kernels")):
+        if line.startswith(("K1 ", "K2 ", "prep ", "X2 ",
+                            "sanitize_kernels")):
             print(f"  poisoned: {line}", flush=True)
     if rc != 0:
         raise RuntimeError(f"the poisoned checker failed (exit code {rc}): "
@@ -1486,7 +1620,8 @@ def phase_sanitizers(k1: dict, k2: dict) -> None:
                 raise RuntimeError(f"{t} failed (exit code {rc}): "
                                    f"{out[-3000:]}")
             results[t] = f"{errors} in {seconds:.1f} s"
-    k1["sanitizers"] = k2["sanitizers"] = k2["prep"]["sanitizers"] = results
+    k1["sanitizers"] = k2["sanitizers"] = k2["prep"]["sanitizers"] = \
+        x2["sanitizers"] = results
 
 
 # -- main --------------------------------------------------------------------------
@@ -1541,9 +1676,17 @@ def main() -> int:
                   "replaces": "schwarzwald_tpu/ops/poisson_pallas.py:62",
                   "library_ms": None, "at": f"{TIMING_CASE} f64",
                   "launches_by_path": {}}
+    # port-only: the XLA sweep program has no Pallas kernel; no single
+    # PyTorch call computes it
+    x2 = {"name": "octree_sweep", "route": "cuda",
+          "source": "schwarzwald_tpu_torch/csrc/sweep.cu",
+          "replaces": "schwarzwald_tpu/ops/device_tiling.py:246",
+          "library_ms": None, "at": f"{SWEEP_TIMING_CASE} RANDOM_GRID",
+          "launches_by_path": {}}
     timed_phase("1 build", phase_build)
     timed_phase("2 K2 and the prep vs plain", phase_poisson_kernel, k2)
     timed_phase("2 K1 vs plain", phase_morton_kernel, k1)
+    timed_phase("2 X2 vs plain", phase_sweep_kernel, x2)
 
     work = os.path.join(ROOT, ".chip_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
@@ -1555,24 +1698,26 @@ def main() -> int:
                     phase_batched_min_distance, work, k2, smi)
         timed_phase("3c the CLI's start", phase_cli_start, work, smi)
         timed_phase("4 batch step", phase_batch_step, k1, smi)
-        timed_phase("5 grid samplers", phase_grid_samplers, work, smi)
+        timed_phase("5 grid samplers", phase_grid_samplers, work, x2, smi)
         timed_phase("6 multichip and multihost", phase_multichip, work, k1,
-                    k2, smi)
+                    k2, x2, smi)
         timed_phase("7 other sinks and the converter",
                     phase_sinks_and_converter, work, k2, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    timed_phase("8 sanitizers", phase_sanitizers, k1, k2)
+    timed_phase("8 sanitizers", phase_sanitizers, k1, k2, x2)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "at", "launches_by_path", "sanitizers")
     prep = k2.pop("prep")
-    kernels = [{k: r[k] for k in keys} for r in (k1, k2, prep)]
+    kernels = [{k: r[k] for k in keys} for r in (k1, k2, prep, x2)]
     kernels[1].update({k: k2[k] for k in ("phase_a_ms", "phase_b_ms",
                                           "scratch_mib")})
     kernels[2].update(kind="port-only: the JAX package's host prep "
                       "(_prep), no Pallas kernel", cases=prep["cases"])
+    kernels[3].update(kind="port-only: the JAX package's XLA sweep "
+                      "program, no Pallas kernel")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

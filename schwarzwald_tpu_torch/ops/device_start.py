@@ -63,17 +63,22 @@ def set_up(use_device: str | None, sampling: str) -> None:
     """Import torch for a run on `use_device` ("cuda" or "cpu"; None, the
     host run, imports nothing), resolved by `resolve_use_device`. Under
     "cuda": create the CUDA context and load the kernel library that the
-    sampler needs (K2's for MIN_DISTANCE*; the grid samplers' sweep is
-    torch ops and loads none), each timed for the start split
-    (util/startup.py). Once for each pair of arguments."""
+    sampler needs (K2's for MIN_DISTANCE*, the sweep X2's for the grid
+    samplers), each timed for the start split (util/startup.py). Once for
+    each pair of arguments."""
     if use_device is None or (use_device, sampling) in _ready:
         return
     torch = _import_torch()
     if use_device == "cuda":
         with startup.timed("CUDA context"):
             torch.cuda.synchronize()  # the first call creates the context
-        if sampling not in GRID_SAMPLERS:  # the Poisson samplers
+        # each timed as "kernel libraries"
+        if sampling in GRID_SAMPLERS:
+            from . import device_tiling
+
+            device_tiling._kernel_fn()
+        else:  # the Poisson samplers
             from . import poisson_cuda
 
-            poisson_cuda._kernel_fns("f64")  # timed as "kernel libraries"
+            poisson_cuda._kernel_fns("f64")
     _ready.add((use_device, sampling))

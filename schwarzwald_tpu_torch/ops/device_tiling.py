@@ -1,5 +1,6 @@
-"""The level-synchronous octree sweep in torch ops (device path of the grid
-samplers).
+"""The level-synchronous octree sweep X2 (device path of the grid
+samplers): the binding of its CUDA kernel (csrc/sweep.cu) and its plain
+version in torch ops.
 
 The counterpart of schwarzwald_tpu/ops/device_tiling.py:38-370. For a
 Morton-sorted FRESH batch it computes, for every point, the octree level of
@@ -21,8 +22,17 @@ the node that keeps it, one level at a time over the whole batch:
 
 Output levels are int8, node_level + 2 (root -1 -> 1), 0 = unassigned.
 Keys are one int64 per point, where the JAX package used (hi, lo) uint32
-words. Cells are contiguous runs of the sorted order, so every per-cell
-quantity is a prefix scan, a gather, or one scatter-min.
+words. Which levels run, and what each picks, depends only on the
+candidate levels, the JITTERED configs, max_depth and min_node_level:
+`level_plan` decides it on the host for both routes.
+
+`octree_select_grid` dispatches on the keys' device: a CUDA tensor
+launches the kernel (`octree_select_grid_cuda`: the whole plan enqueued on
+the current stream, nothing read back, launches counted in `x2_launches`
+where they go out), a CPU tensor runs the plain version
+(`octree_select_grid_torch`). In the plain version cells are contiguous
+runs of the sorted order, so every per-cell quantity is a prefix scan, a
+gather, or one scatter-min.
 
 The float64 geometry (cell centres, node bounds, jitter targets, squared
 distances) keeps the JAX package's order of operations with each multiply
@@ -31,7 +41,9 @@ card with true float64 the distances equal the host engine's bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -225,36 +237,28 @@ def _pick_jittered(key, positions, node_level: int, cfg, remaining, iota,
                          grid_level + 1)
 
 
-def octree_select_grid(key: torch.Tensor, cands, max_points: int,
-                       max_depth: int, strategy: str = "RANDOM_GRID",
-                       positions: torch.Tensor | None = None, root_min=None,
-                       root_max=None, jit_cfgs=None,
-                       min_node_level: int = -1) -> torch.Tensor:
-    """Per-point octree assignment level of a Morton-sorted FRESH batch
-    under RANDOM_GRID, GRID_CENTER or JITTERED sampling, on the keys'
-    device.
+# the pick of a level: the first remaining point of its pick cell, the one
+# nearest the cell's centre, the one nearest the jitter target
+PICK_FIRST, PICK_CENTER, PICK_JITTER = 0, 1, 2
 
-    key: (n,) int64 sorted keys. GRID_CENTER and JITTERED need the (n, 3)
-    float64 positions in key order and the root bounds (root_min, root_max:
-    three floats each); JITTERED also the configs of
-    jittered_static_configs. min_node_level: selection starts at this node
-    level (FAST's start-node level - 1; -1 starts at the root).
 
-    Returns (n,) int8 levels: 0 = unassigned (host path), otherwise
-    node_level + 2."""
-    n = key.shape[0]
-    device = key.device
-    iota = torch.arange(n, dtype=torch.int64, device=device)
-    remaining = torch.ones(n, dtype=torch.bool, device=device)
-    out = torch.zeros(n, dtype=torch.int8, device=device)
+def level_plan(strategy: str, cands, max_depth: int, jit_cfgs=None,
+               min_node_level: int = -1) -> list:
+    """The sweep's levels, decided on the host before any launch: they
+    depend only on the candidate levels, the JITTERED configs, max_depth
+    and min_node_level. One dict per level, in order: node_level,
+    terminal (every remaining point takes the level, and the plan ends),
+    node_groups / pick_groups (octant digits of the node cell and of the
+    pick cell; <= 0 is one cell), pick (PICK_*), depth (GRID_CENTER: the
+    pick cell's depth; JITTERED: the node's), cand and cfg. The plan stops
+    before a level whose candidate grid is at or past the 21-level Morton
+    capacity, or a JITTERED level without a config: their points stay at 0
+    for the host engine."""
+    if strategy not in sampling.GRID_SAMPLERS:
+        raise ValueError(f"no octree sweep for sampler {strategy!r}")
     max_level = min(MAX_LEVELS - 1, max_depth)
-
+    plan = []
     for node_level in range(min_node_level, max_level + 1):
-        # Early exit once every point is assigned (the JAX program's
-        # lax.cond short-circuit). It reads one flag back from the device,
-        # so each level synchronises the host with the card once.
-        if not bool(remaining.any()):
-            break
         if strategy == "JITTERED":
             cfg = jit_cfgs[node_level + 1]
             cand = None
@@ -269,8 +273,78 @@ def octree_select_grid(key: torch.Tensor, cands, max_points: int,
                            else cand >= max_level)
             if not is_terminal and cand >= MAX_LEVELS:
                 break  # re-rooting territory: the host engine finishes
-        participating = remaining
+        level = {"node_level": node_level, "terminal": is_terminal,
+                 "node_groups": node_level + 1, "cand": cand, "cfg": cfg}
         if is_terminal:
+            level.update(pick=PICK_FIRST, pick_groups=node_level + 1,
+                         depth=0)
+        elif strategy == "JITTERED":
+            level.update(pick=PICK_JITTER, pick_groups=cfg[1] + 1,
+                         depth=node_level + 1)
+        elif cand == -1:
+            level.update(pick=PICK_FIRST, pick_groups=node_level + 1,
+                         depth=0)
+        elif strategy == "GRID_CENTER":
+            level.update(pick=PICK_CENTER, pick_groups=cand + 1,
+                         depth=cand + 1)
+        else:
+            level.update(pick=PICK_FIRST, pick_groups=cand + 1, depth=0)
+        plan.append(level)
+        if is_terminal:
+            break
+    return plan
+
+
+def octree_select_grid(key: torch.Tensor, cands, max_points: int,
+                       max_depth: int, strategy: str = "RANDOM_GRID",
+                       positions: torch.Tensor | None = None, root_min=None,
+                       root_max=None, jit_cfgs=None,
+                       min_node_level: int = -1) -> torch.Tensor:
+    """Per-point octree assignment level of a Morton-sorted FRESH batch
+    under RANDOM_GRID, GRID_CENTER or JITTERED sampling, on the keys'
+    device: the kernel of csrc/sweep.cu for a CUDA tensor, the plain
+    version `octree_select_grid_torch` for a CPU tensor.
+
+    key: (n,) int64 sorted keys. GRID_CENTER and JITTERED need the (n, 3)
+    float64 positions in key order and the root bounds (root_min, root_max:
+    three floats each); JITTERED also the configs of
+    jittered_static_configs. min_node_level: selection starts at this node
+    level (FAST's start-node level - 1; -1 starts at the root).
+
+    Returns (n,) int8 levels: 0 = unassigned (host path), otherwise
+    node_level + 2."""
+    args = (key, cands, max_points, max_depth, strategy, positions,
+            root_min, root_max, jit_cfgs, min_node_level)
+    if key.device.type == "cuda":
+        return octree_select_grid_cuda(*args)
+    if key.device.type == "cpu":
+        return octree_select_grid_torch(*args)
+    raise ValueError(f"no octree sweep for device {key.device}")
+
+
+def octree_select_grid_torch(key: torch.Tensor, cands, max_points: int,
+                             max_depth: int, strategy: str = "RANDOM_GRID",
+                             positions: torch.Tensor | None = None,
+                             root_min=None, root_max=None, jit_cfgs=None,
+                             min_node_level: int = -1) -> torch.Tensor:
+    """The plain version of octree_select_grid in torch ops, on any device
+    (the kernel's reference on the card)."""
+    n = key.shape[0]
+    device = key.device
+    iota = torch.arange(n, dtype=torch.int64, device=device)
+    remaining = torch.ones(n, dtype=torch.bool, device=device)
+    out = torch.zeros(n, dtype=torch.int8, device=device)
+
+    for level in level_plan(strategy, cands, max_depth, jit_cfgs,
+                            min_node_level):
+        node_level, cand, cfg = (level["node_level"], level["cand"],
+                                 level["cfg"])
+        # Early exit once every point is assigned (the JAX program's
+        # lax.cond short-circuit). It reads one flag back from the device.
+        if not bool(remaining.any()):
+            break
+        participating = remaining
+        if level["terminal"]:
             out.masked_fill_(participating, node_level + 2)
             break
 
@@ -294,6 +368,164 @@ def octree_select_grid(key: torch.Tensor, cands, max_points: int,
         selected = torch.where(take_all, participating, pick)
         out.masked_fill_(selected, node_level + 2)
         remaining = remaining & ~selected
+    return out
+
+
+# -- the CUDA kernel -----------------------------------------------------------
+
+_lock = threading.Lock()
+x2_launches = 0  # kernels of csrc/sweep.cu launched, counted where launched
+
+LEVEL_INTS = 9 + 3 * 64  # one level of the packed plan (csrc/sweep.cu Level)
+
+
+def reset_counters() -> None:
+    global x2_launches
+    with _lock:
+        x2_launches = 0
+
+
+def snapshot() -> dict:
+    with _lock:
+        return {"x2_launches": x2_launches}
+
+
+def _pack_plan(plan: list) -> np.ndarray:
+    """The plan as csrc/sweep.cu reads it: LEVEL_INTS int32 per level
+    (node_level, terminal, node_groups, pick_groups, pick, depth, levels,
+    actual, plen, then the three permutation rows of 64)."""
+    packed = np.zeros((max(len(plan), 1), LEVEL_INTS), dtype=np.int32)
+    for row, lv in zip(packed, plan):
+        row[:6] = (lv["node_level"], lv["terminal"], lv["node_groups"],
+                   lv["pick_groups"], lv["pick"], lv["depth"])
+        if lv["pick"] == PICK_JITTER:
+            levels, _, actual, plen, perms = lv["cfg"]
+            row[6:9] = (levels, actual, plen)
+            for a, perm in enumerate(perms):
+                row[9 + 64 * a:9 + 64 * a + plen] = perm[:plen]
+    return packed
+
+
+_c_fn = None
+
+
+def _kernel_fn():
+    """ctypes entry point of csrc/sweep.cu (built and loaded at first
+    use)."""
+    global _c_fn
+    if _c_fn is None:
+        from ._cuda_build import load_kernel_library
+
+        lib = load_kernel_library("sweep")
+        if lib.x2_level_ints() != LEVEL_INTS:
+            raise RuntimeError("csrc/sweep.cu packs another plan layout")
+        fn = lib.x2_sweep
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _c_fn = fn
+    return _c_fn
+
+
+def _check_inputs(key, positions, strategy, root_min, root_max,
+                  jit_cfgs) -> None:
+    """Raise on an input the kernel does not take; loads nothing."""
+    if strategy not in sampling.GRID_SAMPLERS:
+        raise ValueError(f"no octree sweep for sampler {strategy!r}")
+    if key.dtype != torch.int64:
+        raise TypeError(f"key has dtype {key.dtype}, expected torch.int64")
+    if key.dim() != 1:
+        raise ValueError(f"key has shape {tuple(key.shape)}, expected (n,)")
+    if not key.is_contiguous():
+        raise ValueError("key must be contiguous")
+    if key.shape[0] >= 2 ** 31:
+        raise ValueError(f"{key.shape[0]} points: the kernel indexes fewer "
+                         f"than 2^31")
+    if strategy != "RANDOM_GRID":
+        if positions is None or root_min is None or root_max is None:
+            raise ValueError(f"{strategy} needs positions, root_min and "
+                             f"root_max")
+        if positions.dtype != torch.float64:
+            raise TypeError(f"positions have dtype {positions.dtype}, "
+                            f"expected torch.float64")
+        if tuple(positions.shape) != (key.shape[0], 3):
+            raise ValueError(f"positions have shape "
+                             f"{tuple(positions.shape)}, expected "
+                             f"({key.shape[0]}, 3)")
+        if not positions.is_contiguous():
+            raise ValueError("positions must be contiguous")
+        if positions.device != key.device:
+            raise ValueError(f"positions are on {positions.device}, the "
+                             f"keys on {key.device}")
+        if len(root_min) != 3 or len(root_max) != 3:
+            raise ValueError("root_min and root_max take three values each")
+    if strategy == "JITTERED" and jit_cfgs is None:
+        raise ValueError("JITTERED needs jit_cfgs")
+    if key.device.type != "cuda":
+        raise ValueError(f"octree_select_grid_cuda needs CUDA tensors, got "
+                         f"{key.device}")
+
+
+def octree_select_grid_cuda(key: torch.Tensor, cands, max_points: int,
+                            max_depth: int, strategy: str = "RANDOM_GRID",
+                            positions: torch.Tensor | None = None,
+                            root_min=None, root_max=None, jit_cfgs=None,
+                            min_node_level: int = -1,
+                            out: torch.Tensor | None = None) -> torch.Tensor:
+    """octree_select_grid by the kernel of csrc/sweep.cu: the whole plan
+    enqueued on the current stream of the keys' device, nothing read
+    back. `out` (tests): a contiguous (n,) int8 CUDA tensor to write, else
+    one from torch.empty. Scratch comes from torch.empty, of any
+    content."""
+    _check_inputs(key, positions, strategy, root_min, root_max, jit_cfgs)
+    n = key.shape[0]
+    device = key.device
+    if out is None:
+        out = torch.empty(n, dtype=torch.int8, device=device)
+    elif (out.dtype != torch.int8 or tuple(out.shape) != (n,)
+          or not out.is_contiguous() or out.device != device):
+        raise ValueError("out must be a contiguous (n,) int8 tensor on the "
+                         "keys' device")
+    if n == 0:
+        return out
+    plan = level_plan(strategy, cands, max_depth, jit_cfgs, min_node_level)
+    packed = _pack_plan(plan)
+    distance = any(lv["pick"] != PICK_FIRST for lv in plan)
+    bounds = np.zeros(6, dtype=np.float64)
+    if positions is not None and root_min is not None:
+        bounds[:3] = [float(v) for v in root_min]
+        bounds[3:] = [float(v) for v in root_max]
+    fn = _kernel_fn()
+    launched = ctypes.c_int(0)
+    # The scratch may be freed while the kernels still run: the caching
+    # allocator hands a block back only to work queued after them on the
+    # same stream, where they were allocated and launched.
+    with torch.cuda.device(device):
+        alive = torch.empty(len(plan) + 1, dtype=torch.int32, device=device)
+        count = torch.empty(2 * n, dtype=torch.int32, device=device)
+        index = torch.empty(2 * n, dtype=torch.int32, device=device)
+        dist = (torch.empty(2 * n, dtype=torch.int64, device=device)
+                if distance else None)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(ctypes.c_void_p(key.data_ptr()),
+                 ctypes.c_void_p(positions.data_ptr() if distance else 0),
+                 n, ctypes.c_void_p(out.data_ptr()),
+                 ctypes.c_void_p(alive.data_ptr()),
+                 ctypes.c_void_p(count.data_ptr()),
+                 ctypes.c_void_p(index.data_ptr()),
+                 ctypes.c_void_p(0 if dist is None else dist.data_ptr()),
+                 packed.ctypes.data_as(ctypes.c_void_p), len(plan),
+                 bounds.ctypes.data_as(ctypes.c_void_p), int(max_points),
+                 ctypes.c_void_p(stream), ctypes.byref(launched))
+    global x2_launches
+    with _lock:
+        x2_launches += launched.value
+    if err != 0:
+        raise RuntimeError(f"octree sweep kernel launch failed: CUDA error "
+                           f"{err}")
     return out
 
 

@@ -1,9 +1,10 @@
-"""K1, K2 and K2's prep through the port's entry points on the card, each
-against its plain version: the program that compute-sanitizer runs over
-the kernels.
+"""K1, K2, K2's prep and X2 through the port's entry points on the card,
+each against its plain version: the program that compute-sanitizer runs
+over the kernels.
 
     python -m schwarzwald_tpu_torch.ops.sanitize_kernels [--cases a,b,...]
-        [--k1-points N] [--threads T] [--poison] [--self-check]
+        [--sweep-cases a,b,...] [--k1-points N] [--threads T] [--poison]
+        [--self-check]
 
 The prep kernels (`poisson_cuda.range_prep`) on each named case of
 `poisson_cases` in both precision modes against `prep_torch`, and K2
@@ -14,9 +15,11 @@ against the same plain mask; the pair gate exactly at and one past its
 capacity (`gate_cases`): the prep kernels against `prep_torch` with a
 guard region after pair_bj that no write may reach, and each range sent
 through the engine's entry point, which the host kernel takes past the
-gate; K1 (`morton_cuda.interleave_cuda`) on N
-coordinates with the one-hot edge rows against `interleave21`. Results
-must be equal exactly; the exit code is 0 when every check held and 1
+gate; X2 (`device_tiling.octree_select_grid_cuda`) on each case of
+`sweep_cases` under each grid sampler against `octree_select_grid_torch`,
+with a guard after `out` that no write may reach; K1
+(`morton_cuda.interleave_cuda`) on N coordinates with the one-hot edge
+rows against `interleave21`. Results must be equal exactly; the exit code is 0 when every check held and 1
 otherwise. `--poison` fills every `torch.empty` of the kernels' wrappers
 (the workspaces' buffers too) with NaN or the type's largest value
 (`torch.utils.deterministic.fill_uninitialized_memory`), so that a kernel
@@ -27,9 +30,10 @@ whether it supports the card.
 
 chip_smoke.py (phase 8) runs this under `compute-sanitizer --tool
 memcheck|racecheck|synccheck|initcheck`, restricted to the kernels
-`interleave_kernel`, `close_kernel`, `decide_kernel`, `prep_blocks_kernel`
-and `prep_pairs_kernel`; `poisson_cases` here also gives its phase 2 its
-inputs.
+`interleave_kernel`, `close_kernel`, `decide_kernel`, `prep_blocks_kernel`,
+`prep_pairs_kernel` and X2's `init_kernel`, `count_kernel` and
+`nearest_kernel` (X2's `decide_kernel` shares K2's name); `poisson_cases`
+and `sweep_cases` here also give its phase 2 its inputs.
 """
 from __future__ import annotations
 
@@ -225,6 +229,128 @@ def check_gate(case, precision: str, device) -> str:
     return f"{line}; K2 {name}: the plain mask, counted {counted}"
 
 
+SWEEP_SAMPLERS = ("RANDOM_GRID", "GRID_CENTER", "JITTERED")
+SWEEP_GROUP_POINTS = 4_000_000  # the engine's sweep group (FAST pipeline)
+SWEEP_GUARD = 4096  # int8 entries after `out` that must stay
+
+
+def sweep_cases(names=None) -> list:
+    """(name, sorted uint64 keys, positions in key order, extent, spacing,
+    max_points, max_depth, min_node_level) of the named X2 cases (all when
+    None), drawn in one order from one seed:
+      * clustered_4M at min_node_level -1 and 2: a sweep group of the main
+        path's size, 250 Gaussian clusters as chip_smoke.py's phase 5
+        cloud, at the defaults (spacing = diagonal / 250, 20,000 points a
+        node);
+      * single_1: one point;
+      * equal_5000: every key equal (one position);
+      * mirrored_ties: pairs of points mirrored about the centres of cells
+        of depths 2-10, on dyadic coordinates, so their distances tie
+        exactly;
+      * block_edges_70001: uniform, n not a multiple of a warp or a block,
+        cells straddling the kernel's blocks;
+      * reroot_3000: a 1e-4-wide cluster at a spacing whose candidate
+        grids pass the 21 Morton levels, so the plan stops and leaves
+        points at 0;
+      * above_n_3000: max_points above n."""
+    from . import indexing
+
+    rng = np.random.default_rng(20261017)
+    drawn = []  # (name, positions, extent, spacing, max_points, min level)
+    k = 250
+    centers = rng.uniform(50.0, 950.0, (k, 3))
+    sigmas = rng.uniform(2.0, 25.0, k)
+    pos = rng.normal(0.0, 1.0, (SWEEP_GROUP_POINTS, 3))
+    pos *= np.repeat(sigmas, SWEEP_GROUP_POINTS // k)[:, None]
+    pos += np.repeat(centers, SWEEP_GROUP_POINTS // k, axis=0)
+    np.clip(pos, 1.0, 999.0, out=pos)
+    for minlv in (-1, 2):
+        drawn.append((f"clustered_4M_level{minlv}", pos, 1000.0,
+                      1000.0 * 3 ** 0.5 / 250, 20_000, minlv))
+    drawn.append(("single_1", rng.uniform(0.0, 64.0, (1, 3)), 64.0, 2.0,
+                  200, -1))
+    drawn.append(("equal_5000", np.full((5000, 3), 17.25), 64.0, 2.0, 200,
+                  -1))
+    pairs = []
+    for depth in range(2, 11):
+        size = 64.0 / 2 ** depth
+        cells = rng.integers(0, 2 ** depth, (40, 3))
+        half = rng.integers(1, 64, (40, 3)) * (size / 256)
+        centre = (cells + 0.5) * size
+        pairs += [centre + half, centre - half]
+    drawn.append(("mirrored_ties", np.concatenate(pairs), 64.0, 0.25, 1,
+                  -1))
+    drawn.append(("block_edges_70001", rng.uniform(0.0, 64.0, (70_001, 3)),
+                  64.0, 2.0, 100, -1))
+    drawn.append(("reroot_3000",
+                  np.array([10.0, 20.0, 30.0]) + rng.uniform(
+                      0.0, 1e-4, (3000, 3)), 64.0, 64.0 / 2 ** 18, 100,
+                  -1))
+    drawn.append(("above_n_3000", rng.uniform(0.0, 64.0, (3000, 3)), 64.0,
+                  2.0, 10_000, -1))
+    cases = []
+    for name, raw, extent, spacing, max_points, minlv in drawn:
+        if names is not None and name not in names:
+            continue
+        keys, clamped = indexing.index_points(raw.copy(), np.zeros(3),
+                                              np.full(3, extent))
+        order = indexing.sort_by_key(keys)
+        cases.append((name, keys[order], np.ascontiguousarray(
+            clamped[order]), extent, spacing, max_points, 100, minlv))
+    return cases
+
+
+def sweep_args(case, sampler: str, device) -> tuple:
+    """(key, positional arguments after it, keyword arguments) of
+    octree_select_grid for one case and sampler on `device`."""
+    from . import device_tiling
+
+    _, keys, pos, extent, spacing, max_points, max_depth, minlv = case
+    key = device_tiling.keys_tensor(keys, device)
+    kw = {"strategy": sampler, "min_node_level": minlv}
+    if sampler != "RANDOM_GRID":
+        kw.update(positions=torch.from_numpy(pos).to(device),
+                  root_min=[0.0] * 3, root_max=[extent] * 3)
+    if sampler == "JITTERED":
+        kw["jit_cfgs"] = device_tiling.jittered_static_configs(
+            extent, spacing, max_depth)
+    cands = device_tiling.candidate_levels(extent, spacing, max_depth)
+    return key, (cands, max_points, max_depth), kw
+
+
+def check_sweep(case, sampler: str, device) -> str:
+    """X2's kernel (`device_tiling.octree_select_grid_cuda`) against its
+    plain version on the card, every int8 level equal; under --poison the
+    output and the scratch start as poison, and a guard after `out` must
+    stay untouched."""
+    from . import device_tiling
+
+    key, args, kw = sweep_args(case, sampler, device)
+    n = key.shape[0]
+    want = device_tiling.octree_select_grid_torch(key, *args, **kw)
+    before = device_tiling.snapshot()["x2_launches"]
+    with poisoned():
+        guarded = torch.full((n + SWEEP_GUARD,), -7, dtype=torch.int8,
+                             device=device)
+        if POISON:
+            guarded[:n] = 127
+        got = device_tiling.octree_select_grid_cuda(key, *args, **kw,
+                                                    out=guarded[:n])
+        torch.cuda.synchronize(device)
+    launches = device_tiling.snapshot()["x2_launches"] - before
+    if not torch.equal(got, want):
+        bad = torch.nonzero(got != want).flatten()[:5].tolist()
+        raise RuntimeError(f"X2 {case[0]} {sampler}: "
+                           f"{int((got != want).sum())} levels differ from "
+                           f"the plain version (first at {bad})")
+    if not bool((guarded[n:] == -7).all()):
+        raise RuntimeError(f"X2 {case[0]} {sampler}: a write past out")
+    levels = sorted(torch.unique(want).tolist())
+    return (f"X2 {case[0]} {sampler}: n={n} launches={launches} levels="
+            f"{levels}, equal to the plain version, nothing written past "
+            f"out")
+
+
 def edge_coords(n: int, seed: int):
     """(n,) int32 random 21-bit coordinates per axis whose first rows are
     the one-hot edge rows (each bit alone, 0 and 2^21 - 1 on one axis,
@@ -354,6 +480,7 @@ def check_threads(case, threads: int, device) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cases", default=",".join(SANITIZED_CASES))
+    ap.add_argument("--sweep-cases", default=None)
     ap.add_argument("--k1-points", type=int, default=K1_POINTS)
     ap.add_argument("--threads", type=int, default=8)
     ap.add_argument("--poison", action="store_true")
@@ -394,6 +521,11 @@ def main(argv=None) -> int:
             for case in gate_cases():
                 for precision in ("f64", "f32"):
                     timed(check_gate, case, precision)
+            sweep_names = (None if args.sweep_cases is None
+                           else set(args.sweep_cases.split(",")))
+            for case in sweep_cases(sweep_names):
+                for sampler in SWEEP_SAMPLERS:
+                    timed(check_sweep, case, sampler)
             timed(check_k1, args.k1_points)
     except RuntimeError as exc:
         print(f"sanitize_kernels: FAIL: {exc}", file=sys.stderr, flush=True)

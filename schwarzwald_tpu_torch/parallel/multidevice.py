@@ -97,9 +97,11 @@ class TilingAlgorithmMultiDevice(TilingAlgorithmFast):
         per_device, _hist = self.exchange.route(keys, ids)
 
         # Each owner's fresh start nodes of a grid sampler run the octree
-        # sweep on that owner's device; the sweeps are all launched before
-        # the first is copied back, so owner d's host persistence overlaps
-        # owner d+1's sweep. The Poisson samplers have no sweep: their
+        # sweep on that owner's device. The sweep's kernel reads nothing
+        # back, so every owner's sweep is enqueued before the first is
+        # copied back: the cards sweep together, and owner d's host
+        # persistence overlaps the later owners' sweeps. The Poisson
+        # samplers have no sweep: their
         # start nodes take the per-node recursion, whose sampler runs K2 on
         # meta.use_device. Revisited subtrees (and ranges the sweep leaves
         # at re-rooting depths) take the host path.

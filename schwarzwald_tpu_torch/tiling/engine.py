@@ -437,10 +437,11 @@ class TilingAlgorithmBase:
         multi-device path runs one sweep per shard on that shard's device).
         Returns the host levels of _materialize_levels, or with
         materialize=False the int8 levels (node_level + 2) as a tensor on
-        the device, not yet copied back: torch launches are asynchronous,
-        so the caller can persist one range while the next one's sweep
-        runs, and then calls _materialize_levels. Every fault raises: there
-        is no host fallback for a failing device."""
+        the device, not yet copied back: on the card the sweep's kernel
+        (csrc/sweep.cu) is enqueued whole, level plan and all, and reads
+        nothing back, so the caller can persist one range while the next
+        one's sweep runs, and then calls _materialize_levels. Every fault
+        raises: there is no host fallback for a failing device."""
         import torch
 
         from ..ops import device_tiling
@@ -973,9 +974,11 @@ class TilingAlgorithmFast(TilingAlgorithmBase):
             arena, [NodeTask(node, root, k, i)
                     for node, k, i in start_nodes])
 
-    # Fresh-sweep group size: large enough to keep the card busy for a
-    # group's ~20 level passes, small enough that persisting group g-1 on
-    # the host overlaps the end of group g's sweep.
+    # Fresh-sweep group size. The sweep's kernel takes a few ms a 4M-point
+    # group on an H100, the persist of a group about half a second (PERF.md
+    # section 5), so group g's sweep runs on the card inside group g-1's
+    # persist; the size was kept as it was: nothing measured asks for
+    # another.
     DEVICE_SWEEP_GROUP_POINTS = 4_000_000
 
     def _device_fresh_sweep_pipelined(self, arena, fresh, root,
@@ -983,9 +986,10 @@ class TilingAlgorithmFast(TilingAlgorithmBase):
         """Fresh start nodes as a pipeline of device sweeps: the fresh list
         is cut into contiguous groups of ~DEVICE_SWEEP_GROUP_POINTS points.
         For each group: launch its sweep, persist the previous group's
-        levels on the host, then copy this group's levels back. The sweep
-        synchronises once per level, so the overlap is its last level's
-        work and the device-to-host copy. Start-node subtrees are disjoint
+        levels on the host, then copy this group's levels back. On the card
+        the sweep is enqueued whole and nothing comes back before that copy,
+        so the whole sweep and its copy overlap the previous group's
+        persist. Start-node subtrees are disjoint
         Morton prefixes at `level`, so per-group sweeps give exactly the
         single sweep's assignment (cells never span a start-node boundary
         at min_node_level = level - 1). A group that reached re-rooting

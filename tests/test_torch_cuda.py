@@ -1,6 +1,6 @@
-"""The CUDA kernels (csrc/poisson.cu, csrc/morton.cu) against their
-plain-torch versions on the card, and the octree sweep and the engine's
-device paths on the card against the CPU and the host, on small cases.
+"""The CUDA kernels (csrc/poisson.cu, csrc/morton.cu, csrc/sweep.cu)
+against their plain-torch versions on the card, and the engine's device
+paths on the card against the CPU and the host, on small cases.
 Needs a CUDA card and nvcc; skipped without a card. Imports nothing of
 JAX, so on a machine without it run:
 
@@ -523,33 +523,65 @@ def test_batch_step_on_the_card_equals_host(cuda):
 
 # -- the octree sweep ------------------------------------------------------------
 
+SWEEP_EDGE_CASES = ("single_1", "equal_5000", "mirrored_ties",
+                    "block_edges_70001", "reroot_3000", "above_n_3000")
+
+
+@pytest.mark.parametrize("case", ["uniform_and_cluster",
+                                  *SWEEP_EDGE_CASES])
 @pytest.mark.parametrize("strategy", ["RANDOM_GRID", "GRID_CENTER",
                                       "JITTERED"])
-def test_sweep_on_the_card_equals_cpu(cuda, strategy):
-    rng = np.random.default_rng(12)
-    pos = np.concatenate([rng.uniform(0.0, EXTENT, (20_000, 3)),
-                          rng.normal(20.0, 0.5, (20_000, 3))])
-    keys, pos = indexing.index_points(pos, np.zeros(3), np.full(3, EXTENT))
-    order = indexing.sort_by_key(keys)
-    skeys, spos = keys[order], pos[order]
-    spacing, max_points = 2.0, 200
-    cands = device_tiling.candidate_levels(EXTENT, spacing, 100)
-    jit_cfgs = device_tiling.jittered_static_configs(EXTENT, spacing, 100)
+def test_sweep_on_the_card_equals_cpu(cuda, strategy, case):
+    """X2's kernel on the card against the plain version on the CPU, every
+    int8 level: a uniform cloud with a dense cluster, and the checker's
+    edge cases (one point, equal keys, exact distance ties, cells across
+    the kernel's blocks, a plan that stops at re-rooting depths, max_points
+    above n)."""
+    if case == "uniform_and_cluster":
+        rng = np.random.default_rng(12)
+        pos = np.concatenate([rng.uniform(0.0, EXTENT, (20_000, 3)),
+                              rng.normal(20.0, 0.5, (20_000, 3))])
+        keys, pos = indexing.index_points(pos, np.zeros(3),
+                                          np.full(3, EXTENT))
+        order = indexing.sort_by_key(keys)
+        drawn = (case, keys[order], pos[order], EXTENT, 2.0, 200, 100, -1)
+    else:
+        drawn = sanitize_kernels.sweep_cases({case})[0]
 
     def run(dev):
-        kw = {}
-        if strategy != "RANDOM_GRID":
-            kw = dict(positions=torch.from_numpy(spos).to(dev),
-                      root_min=[0.0] * 3, root_max=[EXTENT] * 3,
-                      jit_cfgs=jit_cfgs)
-        return device_tiling.octree_select_grid(
-            device_tiling.keys_tensor(skeys, dev), cands, max_points, 100,
-            strategy=strategy, **kw).cpu().numpy()
+        key, args, kw = sanitize_kernels.sweep_args(drawn, strategy, dev)
+        return device_tiling.octree_select_grid(key, *args, **kw)
 
-    want = run("cpu")
+    want = run("cpu").numpy()
+    before = device_tiling.snapshot()["x2_launches"]
     got = run(cuda)
-    np.testing.assert_array_equal(got, want)
-    assert np.unique(want[want > 0]).size >= 3
+    assert device_tiling.snapshot()["x2_launches"] > before
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if case == "uniform_and_cluster":
+        assert np.unique(want[want > 0]).size >= 3
+
+
+def test_sweep_wrapper_checks_its_inputs(cuda):
+    key = torch.arange(100, dtype=torch.int64, device=cuda)
+    pos = torch.zeros(100, 3, dtype=torch.float64, device=cuda)
+    gc = dict(strategy="GRID_CENTER", root_min=[0.0] * 3,
+              root_max=[1.0] * 3)
+    cands = device_tiling.candidate_levels(EXTENT, 2.0, 100)
+    with pytest.raises(ValueError, match="are on"):
+        device_tiling.octree_select_grid_cuda(key, cands, 10, 100,
+                                              positions=pos.cpu(), **gc)
+    with pytest.raises(TypeError, match="dtype"):
+        device_tiling.octree_select_grid_cuda(key.to(torch.int32), cands,
+                                              10, 100)
+    with pytest.raises(ValueError, match="out must be"):
+        device_tiling.octree_select_grid_cuda(
+            key, cands, 10, 100, positions=pos, **gc,
+            out=torch.empty(100, dtype=torch.int16, device=cuda))
+    # a key on the CPU never reaches the kernel through the dispatch
+    before = device_tiling.snapshot()["x2_launches"]
+    device_tiling.octree_select_grid(key.cpu(), cands, 10, 100)
+    assert device_tiling.snapshot()["x2_launches"] == before
 
 
 @pytest.mark.parametrize("tiling", ["FAST", "ACCURATE"])

@@ -18,7 +18,8 @@ _FORBIDDEN = re.compile(
 def _port_sources(suffixes=(".py",)):
     out = ([os.path.join(ROOT, "chip_smoke.py"),
             os.path.join(ROOT, "bench_torch.py"),
-            os.path.join(ROOT, "bench_k2_path.py")]
+            os.path.join(ROOT, "bench_k2_path.py"),
+            os.path.join(ROOT, "bench_sweep.py")]
            if ".py" in suffixes else [])
     for d, _, files in os.walk(PORT):
         out.extend(os.path.join(d, f) for f in files if f.endswith(suffixes))
@@ -40,6 +41,7 @@ def _port_sources(suffixes=(".py",)):
      "schwarzwald_tpu_torch.native.tsan_stress"),
     ("bench_torch",),
     ("bench_k2_path",),
+    ("bench_sweep",),
 ])
 def test_import_pulls_in_no_jax(modules):
     code = ("import sys\n"
