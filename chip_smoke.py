@@ -17,9 +17,14 @@ each phase prints its seconds:
      a dense range at the pair gate's edge that runs window by window) in
      both precision modes, and the main path's root-shaped range of
      5,490,148 points in f64 (the plain version skipped there for time);
-     K2's prep kernels (planes, AABBs, pair CSR, gate) on the same ranges
-     against their plain version (pair_csr_torch, _masked), both timed
-     with the prep's bound, and their pair CSR against the host's; every
+     K2's prep kernels (planes, AABBs, pair CSR, gate; one launch up to
+     PREP_ONE_LAUNCH = 512 blocks, two above) on the same ranges and at
+     the edges of its one launch (1, 511, 512 and 513 blocks) and of its
+     second launch's group boxes (3,199 and 3,200 blocks) against
+     their plain version (pair_csr_torch, _masked), both timed with the
+     prep's bound (the kernels' `ms` as every row's, and `card_ms` with
+     the host's enqueue hidden behind a spin), and their pair CSR against
+     the host's; every
      f64 mask also against the native host kernel; per case the kernel's time with
      phase A and phase B apart, its bounds (bytes, and the close pairs'
      distance tests) and its share of each, and the peak scratch. K1
@@ -30,18 +35,20 @@ each phase prints its seconds:
      on sanitize_kernels.sweep_cases (a 4M-point clustered group at
      min_node_level -1 and 2, one point, equal keys, exact distance ties,
      cells across the kernel's blocks, a plan that stops at re-rooting
-     depths, max_points above n), every int8 level; the 4M groups timed
-     (CUDA events) beside the plain version and the bound, with the
-     launches per sweep. Results must be equal exactly;
+     depths, max_points above n), every int8 level, one cooperative
+     launch a sweep; the 4M groups timed (CUDA events) beside the plain
+     version and the bound. Results must be equal exactly;
   3. the MIN_DISTANCE main path (kernel K2): a 10M-point uniform LAS tiled
      at the defaults (FAST, MIN_DISTANCE, 3D Tiles, 20,000 points per node,
      spacing = diagonal/250) with use_device="cuda" and "host"; the trees
      must be byte-identical (properties.json up to its two timing fields),
      every tile must hold finite positions, the tiles must hold at least
      every input point, and K2 and the prep kernels must have been launched
-     (two prep launches per range sent). Each device range's time is split
-     into upload, prep (the prep kernels), phase A + B and download, each
-     as stream time and as the sending thread's wall and CPU time; the
+     (one prep launch for each range of at most 512 blocks, two for a
+     larger one, as each range's trace records). Each device range's time
+     is split into upload, prep (the prep kernels), phase A + B and
+     download, each as stream time and as the sending thread's wall and CPU
+     time; the
      device segments and pinned blocks the run made and the workspaces'
      memory are printed; no two sending threads alive at once may share a
      stream
@@ -95,9 +102,11 @@ each phase prints its seconds:
      3D Tiles, phase 3's 3D Tiles tree to LAZ and to LAS at --max-depth 4,
      with each conversion's points per second;
   8. the sanitizers: the kernels' checker (ops/sanitize_kernels.py: the
-     prep kernels and K2 on six phase 2 cases in both modes, one of them
-     from 8 threads at once, the prep at and one past the pair gate with a
-     guard after pair_bj, X2 on every phase 2 case under each grid sampler
+     prep kernels and K2 on twelve phase 2 cases in both modes, one of them
+     from 8 threads at once, the prep at and one past the pair gate, in
+     one launch and in two (a CTA a row, and group boxes), with a guard
+     after pair_bj, X2 on every phase
+     2 case under each grid sampler
      with a guard after its output, and K1 at 10,000,001 points, each
      against its plain version) run with every torch.empty poisoned, then
      under compute-sanitizer's memcheck, racecheck, synccheck and initcheck
@@ -159,10 +168,12 @@ def median_ms(fn, reps: int = 3):
     return out, sorted(times)[reps // 2]
 
 
-def event_ms(fn, launches: int = 20, reps: int = 3):
+def event_ms(fn, launches: int = 20, reps: int = 3, queued: bool = False):
     """(last result, median over `reps` windows of the mean ms per launch)
     of fn, timed with CUDA events around `launches` back-to-back launches,
-    after a warm-up: for kernels too short for the host clock."""
+    after a warm-up: for kernels too short for the host clock. `queued`:
+    each window waits behind a spin kernel, so it times the card alone and
+    not the host's enqueue (kernels shorter than their launch)."""
     import torch
 
     out = fn()
@@ -171,6 +182,8 @@ def event_ms(fn, launches: int = 20, reps: int = 3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        if queued:
+            torch.cuda._sleep(50_000_000)
         start.record()
         for _ in range(launches):
             out = fn()
@@ -330,8 +343,10 @@ def check_prep_kernel(name, precision, pos, analyze, spacing, report):
     """The prep kernels (poisson_cuda.range_prep) against their plain
     version (prep_torch: pair_csr_torch and _masked) on the card, equal
     element for element; the kernels timed as the range path runs them,
-    into a workspace's buffers, and the plain version beside them. Returns
-    the kernels' pair CSR."""
+    into a workspace's buffers, and the plain version beside them. `ms`
+    is timed as every kernel's row is (the host's enqueue of each window
+    included), `card_ms` with each window queued behind a spin (the card
+    alone). Returns the kernels' pair CSR."""
     import torch
 
     from schwarzwald_tpu_torch.ops import poisson_cuda
@@ -355,11 +370,17 @@ def check_prep_kernel(name, precision, pos, analyze, spacing, report):
         n, precision, a_t is not None)
     before = poisson_cuda.prep_launches
     per_window = 5 if n > 2_000_000 else 20
-    _, ms = event_ms(lambda: poisson_cuda._prep(
-        p_t.view(-1), a_t, n, nb, spacing, precision, buf),
-        launches=per_window)
+
+    def prep():
+        return poisson_cuda._prep(p_t.view(-1), a_t, n, nb, spacing,
+                                  precision, buf)
+
+    _, ms = event_ms(prep, launches=per_window)
+    _, card_ms = event_ms(prep, launches=per_window, queued=True)
     launched = poisson_cuda.prep_launches - before
-    if launched != 2 * (1 + 3 * per_window):  # event_ms: warm-up, 3 x
+    per_call = poisson_cuda.prep_launches_per_range(nb)
+    # two event_ms: a warm-up and 3 windows each
+    if launched != 2 * per_call * (1 + 3 * per_window):
         raise RuntimeError(f"{name}: {launched} prep launches counted")
     if not torch.equal(buf.ptr, got[1]):
         raise RuntimeError(f"{name} {precision}: the prep kernels' pair_ptr "
@@ -367,14 +388,15 @@ def check_prep_kernel(name, precision, pos, analyze, spacing, report):
     b = prep_bound(n, nb, n_cross, got[0].element_size(), a_t is not None)
     print(f"kernel prep {name} {precision}: n={n} blocks={nb} "
           f"n_cross={n_cross} gate={gate} kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.3f}; bound {b['bound_ms']:.6f} ms by "
+          f"card_ms={card_ms:.4f} plain_ms={plain_ms:.3f}; bound {b['bound_ms']:.6f} ms by "
           f"{b['bound_by']}, the kernels at {100 * b['bound_ms'] / ms:.2f}% "
-          f"of it; 2 launches a call", flush=True)
+          f"of it; {per_call} launch{'es' if per_call > 1 else ''} a call",
+          flush=True)
     if precision == "f64" and name in (TIMING_CASE, "root_5490148"):
         report.setdefault("cases", {})[name] = {
-            "ms": ms, "plain_ms": plain_ms, **b}
+            "ms": ms, "card_ms": card_ms, "plain_ms": plain_ms, **b}
     if name == TIMING_CASE and precision == "f64":
-        report.update(ms=ms, plain_ms=plain_ms, **b)
+        report.update(ms=ms, card_ms=card_ms, plain_ms=plain_ms, **b)
     report["max_abs_err"] = 0
     return got[1], got[2][:n_cross]
 
@@ -390,6 +412,8 @@ def phase_poisson_kernel(report: dict) -> None:
     from schwarzwald_tpu_torch import native
     from schwarzwald_tpu_torch.ops import poisson_cuda
     from schwarzwald_tpu_torch.ops.sanitize_kernels import (ROOT_CASE,
+                                                            check_gate,
+                                                            gate_cases,
                                                             poisson_cases)
 
     host_kernel = native.poisson_sample_kernel()
@@ -473,6 +497,13 @@ def phase_poisson_kernel(report: dict) -> None:
                               phase_a_ms=phases["A"], phase_b_ms=phases["B"],
                               scratch_mib=scratch / 2 ** 20)
             del planes, ana, ptr, bj
+    # the prep at and one past the pair gate, in one launch and in two
+    # (phase 8 also sends these ranges; here no thread takes a stream
+    # before phase 3 counts them)
+    for case in gate_cases():
+        for precision in ("f64", "f32"):
+            print(f"kernel {check_gate(case, precision, dev, send=False)}",
+                  flush=True)
     report["max_abs_err"] = max_err
 
 
@@ -622,8 +653,33 @@ def phase_sweep_kernel(report: dict) -> None:
             if err or not torch.equal(got, want):
                 raise RuntimeError(f"X2 {case[0]} {sampler}: the kernel's "
                                    f"levels differ from the plain version")
-            if launches <= 0:
-                raise RuntimeError(f"X2 {case[0]} {sampler}: no launch")
+            if launches != (1 if n else 0):
+                raise RuntimeError(f"X2 {case[0]} {sampler}: {launches} "
+                                   f"launches (one a sweep)")
+    # four sweeps enqueued on four streams before any is waited on: each
+    # launch carries its own plan, and cooperative launches queue behind
+    # one another
+    jobs = []
+    for case in cases:
+        if case[0] not in ("block_edges_70001", "mirrored_ties"):
+            continue
+        for sampler in ("RANDOM_GRID", "JITTERED"):
+            key, args, kw = sweep_args(case, sampler, torch.device("cuda"))
+            want = device_tiling.octree_select_grid_torch(key, *args, **kw)
+            jobs.append((key, args, kw, want))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in jobs]
+    outs = []
+    for s, (key, args, kw, _) in zip(streams, jobs):
+        with torch.cuda.stream(s):
+            outs.append(device_tiling.octree_select_grid_cuda(key, *args,
+                                                              **kw))
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, j[3]) for o, j in zip(outs, jobs)):
+        raise RuntimeError("X2: a sweep of four on four streams differs "
+                           "from its plain version")
+    print(f"kernel sweep: {len(jobs)} sweeps on {len(streams)} streams at "
+          f"once, each equal to its plain version", flush=True)
     report["max_abs_err"] = max_err
 
 
@@ -780,11 +836,23 @@ def phase_min_distance(work: str, report: dict, card: str) -> None:
             prep_launches
         if counts["launches"] <= 0 or not ranges:
             raise RuntimeError("the main path launched no Poisson kernel")
-        if prep_launches != 2 * (len(ranges) + counts["pair_gate"]):
+        # one prep launch for a range of at most PREP_ONE_LAUNCH blocks,
+        # two above (a range past the gate, not traced, one or two)
+        one = poisson_cuda.PREP_ONE_LAUNCH
+        wrong = [r for r in ranges if r["prep_launches"] != (
+            1 if -(-r["n"] // poisson_cuda.BLOCK) <= one else 2)]
+        traced = sum(r["prep_launches"] for r in ranges)
+        if wrong or not (traced + counts["pair_gate"] <= prep_launches
+                         <= traced + 2 * counts["pair_gate"]):
             raise RuntimeError(f"the main path launched the prep kernels "
                                f"{prep_launches} times for {len(ranges)} "
                                f"device ranges and {counts['pair_gate']} "
-                               f"past the gate")
+                               f"past the gate; {len(wrong)} ranges took "
+                               f"another number than their blocks ask")
+        small = sum(1 for r in ranges if r["prep_launches"] == 1)
+        print(f"main path cuda: the prep in one launch for {small} ranges "
+              f"of at most {one} blocks, in two for {len(ranges) - small} "
+              f"larger ones", flush=True)
         made = {k: v - allocs[k] for k, v in memory_counts().items()}
         print(f"main path cuda: the run made {made['segments']} device "
               f"segments and {made['pinned']} pinned blocks; workspaces "
@@ -1061,7 +1129,7 @@ def write_clustered_las(path: str, n: int, seed: int) -> None:
 
 def phase_grid_samplers(work: str, x2: dict, card: str) -> None:
     """The grid samplers' main path, each run's X2 launches counted from 0
-    just before it: above 0 on the card, 0 on the host."""
+    just before it: one a sweep on the card, 0 on the host."""
     import torch
 
     from schwarzwald_tpu_torch.ops import device_tiling
@@ -1132,9 +1200,10 @@ def phase_grid_samplers(work: str, x2: dict, card: str) -> None:
             x2["launches_by_path"][f"5 {sampler}"] = launches
             if sampler == "RANDOM_GRID":
                 x2["launches"] = launches
-            if launches <= 0:
-                raise RuntimeError(f"{sampler}: the card run launched no "
-                                   f"X2 kernel")
+            if launches <= 0 or launches != len(sweeps):
+                raise RuntimeError(f"{sampler}: the card run launched "
+                                   f"{launches} X2 kernels for "
+                                   f"{len(sweeps)} sweeps (one each)")
             levels = sorted({lv for _, _, lvs in sweeps for lv in lvs})
             big = sum(1 for s in fresh_sizes if s > 20_000)
             print(f"grid {sampler} cuda: {len(fresh_sizes)} fresh start "
@@ -1396,10 +1465,11 @@ def phase_multichip(work: str, k1: dict, k2: dict, x2: dict,
                   f"{pts} points {s * 1e3:.1f} ms on {card}", flush=True)
         if stats["device_sweeps_ok"] <= 0:
             raise RuntimeError(f"RANDOM_GRID {label}: no device sweep")
-        if launches <= 0 or any(not dev.startswith("cuda")
-                                for dev, _, _ in sweeps):
-            raise RuntimeError(f"RANDOM_GRID {label}: a sweep did not run "
-                               f"the X2 kernel on a card")
+        if launches != len(sweeps) or not sweeps or any(
+                not dev.startswith("cuda") for dev, _, _ in sweeps):
+            raise RuntimeError(f"RANDOM_GRID {label}: {launches} X2 "
+                               f"launches for {len(sweeps)} sweeps, or a "
+                               f"sweep did not run the X2 kernel on a card")
         if label == "multichip":
             x2["launches_by_path"][f"6 RANDOM_GRID --multichip {SHARDS}"] = \
                 launches
@@ -1532,8 +1602,8 @@ def phase_sinks_and_converter(work: str, k2: dict, card: str) -> None:
 
 SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 SANITIZED_KERNELS = ("kns=interleave_kernel|close_kernel|decide_kernel|"
-                     "prep_blocks_kernel|prep_pairs_kernel|init_kernel|"
-                     "count_kernel|nearest_kernel")
+                     "prep_one_kernel|prep_blocks_kernel|prep_rows_kernel|"
+                     "prep_pairs_kernel|sweep_kernel")
 SANITIZER_TIMEOUT_S = 300
 REFUSED = "Device not supported"
 
@@ -1715,7 +1785,8 @@ def main() -> int:
     kernels[1].update({k: k2[k] for k in ("phase_a_ms", "phase_b_ms",
                                           "scratch_mib")})
     kernels[2].update(kind="port-only: the JAX package's host prep "
-                      "(_prep), no Pallas kernel", cases=prep["cases"])
+                      "(_prep), no Pallas kernel", cases=prep["cases"],
+                      card_ms=prep["card_ms"])
     kernels[3].update(kind="port-only: the JAX package's XLA sweep "
                       "program, no Pallas kernel")
     print(json.dumps({"kernels": kernels}))

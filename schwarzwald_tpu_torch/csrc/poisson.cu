@@ -85,7 +85,7 @@
 // relaxation rounds of one block; (3) each engine worker thread launches on
 // a stream of its own (ops/poisson_cuda.py), so the ranges of one finalize
 // level overlap; (4) the AABBs and the pair CSR are built on the card, by
-// two launches of the prep (below) and not by a chain of torch ops.
+// one or two launches of the prep (below), not by a chain of torch ops.
 //
 // The bound of phase B is the longest dependency chain: block b waits on
 // block b' only when a point of b' is close to a point of b, and the chain
@@ -497,36 +497,73 @@ cudaError_t launch_close(const T* planes, int64_t n, T sq, double reach,
 // `prep_torch` (pair_csr_torch and _masked), and its output equals that
 // version element for element: the (3, n) planes in the mode's type with x
 // = NaN at the points that are not analyzed; the per-block AABBs of the
-// unmasked planes, widened to double; the cross-pair CSR with the same
-// pairs in the same order (bj < bi, ascending bj within a row; lo = min - s
-// and hi = max + s rounded in double, the same <= and >= tests); n_cross
-// and the gate flag (n_cross + nb > MAX_PAIRS_PER_BLOCK * nb).
+// unmasked planes, widened to double, NaN kept as torch.amin / amax keep
+// it; the cross-pair CSR with the same pairs in the same order (bj < bi,
+// ascending bj within a row; lo = min - s and hi = max + s rounded in
+// double, the same <= and >= tests); n_cross and the gate flag (n_cross +
+// nb > MAX_PAIRS_PER_BLOCK * nb). It also zeroes what the range's kernels
+// expect zeroed: phase B's state bytes, ready flags and tickets.
 //
-// Two launches. prep_blocks_kernel, one CTA per block: the planes, the
-// block's AABB, and the zeroing of what the range's kernels expect zeroed
-// (phase B's state bytes, ready flags and tickets; the pair scan's status
-// words and ticket). prep_pairs_kernel, one CTA per row bi taken from a
-// ticket: it tests every bj < bi (a range of nb blocks costs nb^2 / 2 box
-// tests, 57M at the 5.49M-point root, all in L2), counts the row, gets the
-// row's start by a single-pass scan with decoupled look-back (each row
-// publishes its count at once, then its inclusive prefix; a row sums the
-// counts back to the first inclusive prefix it meets; rows are taken in
-// ascending ticket order, so every row it waits on is held by a running
-// CTA that publishes without waiting: no deadlock), then tests the row
-// again and writes its pairs in order. pair_bj holds `cap` entries, the
-// gate's capacity: no entry is written at or past it, and a row whose end
-// passes it writes none (the gate has tripped). The last row writes
-// head[0] (the gate flag) and head[1] (n_cross).
+// Bound: 24 bytes in per point (positions, f64), 3 coordinates out and 4
+// bytes per pair: 0.0038 ms at `uniform_262144` (512 blocks), 0.079 ms at
+// the 10M main path's 5.49M-point root. What held the first design (a
+// launch for the blocks, then one CTA per row testing every earlier block
+// twice, its start by a look-back that one thread walked a row at a time)
+// was the second launch at the main path's ranges (8-512 blocks, most of
+// them 33-200, where the data moves in about a microsecond) and, at the
+// root, nb^2 box tests and a look-back chain over 10,723 rows. This design:
 //
-// Bound: 24 bytes in per point (positions, f64), 3 coordinates out and
-// 4 bytes per pair; the box tests are a few thousand per block. The
-// kernels' time is launch-sized at the main path's ranges (8-200 blocks).
+//   * A range of at most PREP_ONE_LAUNCH = BLOCK blocks (every range of
+//     md_10M's node recursion, 459 of md_30M's 537) is one launch,
+//     prep_one_kernel: each CTA takes its block by ticket, writes its
+//     planes, box and zeroes, publishes the box, then builds its row of
+//     the pair CSR at once: thread j waits for box j (an earlier ticket, so
+//     a running CTA that publishes without waiting) and tests it, and the
+//     row's start comes from a look-back whose warp reads 32 rows' status
+//     words at a time. Flags and status words carry the launch's epoch, so
+//     no launch clears them. Tried and measured (PERF.md §6): the
+//     last CTA to finish building the whole CSR alone (lost to the two
+//     launches above 100 blocks), and this kernel looping over larger
+//     ranges (lost above 512 blocks).
+//   * A larger range (the finalize's upper levels, the root) keeps two
+//     launches, both with the same epoch-tagged look-back. The first,
+//     prep_blocks_kernel, does the blocks. Below the wrapper's
+//     PREP_GROUPED_FROM = 3,200 blocks the second is prep_rows_kernel, the
+//     first design's CTA a row testing every earlier block, now without
+//     its look-back chain and its zeroing pass: faster than it at every
+//     size measured (768-8,192 blocks, PERF.md section 6). From there the
+//     first launch also writes a union box per GROUP consecutive blocks
+//     (by the group's last CTA, by a ticket); blocks are in Morton order,
+//     so a group is spatially compact. The second, prep_pairs_kernel,
+//     gives one CTA of 8 warps a tile of TILE = 8 rows by ticket, a warp
+//     a row; a row tests the group boxes first and the member blocks only
+//     of a group whose box meets, in ascending order, keeps its pairs in
+//     shared memory for the fill, and the look-back runs over tiles. Its
+//     chain of dependent loads a row lost to the CTA a row below about
+//     3,100 blocks; 32-row tiles (1,024-thread CTAs, 32 of them at 1,024
+//     blocks) were slower still there.
+// pair_bj holds `cap` entries, the gate's capacity: no entry is written at
+// or past it, and a row whose end passes it writes none (the gate has
+// tripped). head[0] is the gate flag, head[1] n_cross.
 
-constexpr int PAIR_THREADS = 256;
-constexpr int PAIR_WARPS = PAIR_THREADS / 32;
+constexpr int PREP_ONE_LAUNCH = 512;  // blocks a range takes in one launch
+static_assert(PREP_ONE_LAUNCH <= BLOCK, "one thread a block of a row");
+constexpr int GROUP = 32;             // blocks per group box (a warp's lanes)
+constexpr int TILE = 8;               // rows per CTA of prep_pairs_kernel
+constexpr int PAIR_THREADS = 32 * TILE;  // a warp a row
+constexpr int ROW_KEEP = 256;         // a row's pairs kept from its count
+constexpr int ROWS_THREADS = 256;     // threads of prep_rows_kernel's CTA
+// A status word of the look-back: its state in bits 62-63, the launch's
+// epoch in bits 46-61, a count or prefix in bits 0-45 (a range of at most
+// PREP_MAX_BLOCKS blocks has fewer pairs than 2^46).
 constexpr unsigned long long SCAN_AGGREGATE = 1ull << 62;
 constexpr unsigned long long SCAN_PREFIX = 2ull << 62;
-constexpr unsigned long long SCAN_VALUE = (1ull << 62) - 1;
+constexpr unsigned long long SCAN_STATE = 3ull << 62;
+constexpr int SCAN_TAG_SHIFT = 46;
+constexpr unsigned long long SCAN_VALUE = (1ull << SCAN_TAG_SHIFT) - 1;
+constexpr unsigned long long SCAN_TAG = ~(SCAN_STATE | SCAN_VALUE);
+constexpr int PREP_EPOCHS = 1 << 16;  // epochs 1 .. PREP_EPOCHS - 1
+constexpr int64_t PREP_MAX_BLOCKS = 1 << 23;
 
 // min / max that keep a NaN, as torch.amin / amax do
 __device__ __forceinline__ double nan_min(double a, double b) {
@@ -536,23 +573,21 @@ __device__ __forceinline__ double nan_max(double a, double b) {
   return a != a ? a : (b != b || b > a ? b : a);
 }
 
+// Block b of a range: its planes (x = NaN where not analyzed), its box
+// (min x, y, z then max x, y, z, nb apart; also into row[6]) and the
+// zeroes of phase B's state bytes, ready flag and ticket. Every thread of
+// the CTA calls it; the box is fenced before it returns.
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
-prep_blocks_kernel(const double* __restrict__ pos,      // (n, 3)
-                   const uint8_t* __restrict__ analyze,  // (n,) or null
-                   int64_t n, int32_t nb,
-                   T* __restrict__ planes,               // (3, n)
-                   double* __restrict__ box,             // (6, nb)
-                   unsigned long long* __restrict__ scan,
-                   int32_t* __restrict__ pair_ticket,
-                   uint8_t* __restrict__ state,
-                   int32_t* __restrict__ flags,
-                   int32_t* __restrict__ tickets) {
+__device__ void block_work(const double* __restrict__ pos,
+                           const uint8_t* __restrict__ analyze, int64_t n,
+                           int32_t nb, int32_t b, T* __restrict__ planes,
+                           double* box, uint8_t* __restrict__ state,
+                           int32_t* __restrict__ flags,
+                           int32_t* __restrict__ tickets, double* row) {
   __shared__ double part[2][3][BLOCK / 32];
   const int i = threadIdx.x;
   const int lane = i & 31;
   const int warp = i >> 5;
-  const int32_t b = blockIdx.x;
   const int64_t gi = static_cast<int64_t>(b) * BLOCK + i;
   const double inf = __longlong_as_double(0x7ff0000000000000LL);
   double lo[3] = {inf, inf, inf};
@@ -595,29 +630,273 @@ prep_blocks_kernel(const double* __restrict__ pos,      // (n, 3)
     }
     box[i * nb + b] = m;
     box[(3 + i) * nb + b] = x;
+    row[i] = m;
+    row[3 + i] = x;
+    __threadfence();  // the box before it is published
   }
   if (i == 0) {
     flags[b] = 0;
     tickets[b] = 0;
-    scan[b] = 0ull;
-    if (b == 0) *pair_ticket = 0;
+  }
+  __syncthreads();
+}
+
+// The start of a row's pairs by a single-pass scan with decoupled
+// look-back, warp 0 of the row's CTA: it publishes the row's count at once,
+// then reads the status words of up to 32 earlier rows at a time, sums the
+// counts back to the nearest inclusive prefix, and publishes its own. Rows
+// (or tiles of rows) are taken in ascending ticket order, so every row it
+// waits on is held by a running CTA that publishes without waiting: no
+// deadlock. A word counts once it holds the launch's `tag` (its epoch <<
+// SCAN_TAG_SHIFT): words of earlier launches are read as unpublished, so
+// no launch clears them. Returns the row's start (exclusive prefix) in
+// every lane.
+__device__ long long look_back(unsigned long long* scan, int32_t r,
+                               long long count, unsigned long long tag,
+                               int lane) {
+  using ref = cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>;
+  long long start = 0;
+  if (r > 0) {
+    if (lane == 0) {
+      ref(scan[r]).store(SCAN_AGGREGATE | tag |
+                             static_cast<unsigned long long>(count),
+                         cuda::memory_order_relaxed);
+    }
+    for (int32_t top = r - 1;;) {
+      const int32_t j = top - lane;
+      // before row 0: a prefix of 0
+      unsigned long long v =
+          j >= 0 ? ref(scan[j]).load(cuda::memory_order_relaxed)
+                 : SCAN_PREFIX | tag;
+      if ((v & SCAN_TAG) != tag) v = 0ull;  // another launch's word
+      const unsigned prefix =
+          __ballot_sync(0xffffffffu, (v & SCAN_STATE) == SCAN_PREFIX);
+      const int stop = prefix ? __ffs(prefix) - 1 : 31;
+      const unsigned upto = (2u << stop) - 1u;  // lanes 0 .. stop
+      if (__ballot_sync(0xffffffffu, (v & SCAN_STATE) == 0ull) & upto) {
+        __nanosleep(32);
+        continue;  // a row not yet published: read the window again
+      }
+      long long sum =
+          lane <= stop ? static_cast<long long>(v & SCAN_VALUE) : 0;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      }
+      start += sum;
+      if (prefix) break;
+      top -= 32;
+    }
+  }
+  if (lane == 0) {
+    ref(scan[r]).store(SCAN_PREFIX | tag |
+                           static_cast<unsigned long long>(start + count),
+                       cuda::memory_order_relaxed);
+  }
+  return start;
+}
+
+// The CTA's place in a launch, by ticket, in thread 0: the CTA that takes
+// the last of `last + 1` tickets sets the counter back to 0 for the
+// workspace's next range (every CTA has taken its ticket by then).
+__device__ __forceinline__ int32_t take_ticket(int32_t* ticket,
+                                               int32_t last) {
+  const int32_t t = atomicAdd(ticket, 1);
+  if (t == last) *ticket = 0;
+  return t;
+}
+
+// A range of at most PREP_ONE_LAUNCH blocks in one launch: each CTA takes
+// block b by ticket, does its block, publishes its box (ready[b] = epoch),
+// then builds row b of the pair CSR: thread j < b waits for box j and
+// tests it, and the row's count, start (look_back over `scan`) and pairs
+// follow, in ascending j. Row nb - 1 writes the gate. `epoch` differs from
+// every value ready and scan hold from earlier launches (the wrapper's
+// count of the workspace's launches, on buffers zeroed where it allocates
+// them), so nothing is cleared.
+template <typename T>
+__global__ void __launch_bounds__(BLOCK, 4)  // 32 registers: 4 CTAs a SM
+prep_one_kernel(const double* __restrict__ pos,
+                const uint8_t* __restrict__ analyze, int64_t n, int32_t nb,
+                T* __restrict__ planes, double* box,
+                int32_t* ticket,             // 1, zero on entry
+                int32_t* ready,              // nb
+                unsigned long long* scan,    // nb
+                int32_t epoch,               // 1 .. PREP_EPOCHS - 1
+                uint8_t* __restrict__ state, int32_t* __restrict__ flags,
+                int32_t* __restrict__ tickets, double s, int64_t cap,
+                int32_t* __restrict__ pair_ptr,
+                int32_t* __restrict__ pair_bj, int64_t* __restrict__ head) {
+  using ref = cuda::atomic_ref<int32_t, cuda::thread_scope_device>;
+  __shared__ int32_t s_b;
+  __shared__ double s_row[6];
+  __shared__ int32_t s_warp[BLOCK / 32];
+  __shared__ long long s_start;
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  if (i == 0) s_b = take_ticket(ticket, nb - 1);
+  __syncthreads();
+  const int32_t b = s_b;
+  block_work<T>(pos, analyze, n, nb, b, planes, box, state, flags, tickets,
+                s_row);
+  if (i == 0) ref(ready[b]).store(epoch, cuda::memory_order_release);
+
+  // row b: thread j < b tests block j's box against b's inflated one
+  // (PREP_ONE_LAUNCH <= BLOCK: one thread a block)
+  bool m = false;
+  if (i < b) {
+    ref flag(ready[i]);
+    while (flag.load(cuda::memory_order_acquire) != epoch) __nanosleep(64);
+    m = true;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      m = m && __dsub_rn(s_row[a], s) <= __ldcg(&box[(3 + a) * nb + i]) &&
+          __dadd_rn(s_row[3 + a], s) >= __ldcg(&box[a * nb + i]);
+    }
+  }
+  const unsigned bal = __ballot_sync(0xffffffffu, m);
+  if (lane == 0) s_warp[warp] = __popc(bal);
+  __syncthreads();
+  if (warp == 0) {
+    long long c = lane < BLOCK / 32 ? s_warp[lane] : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      c += __shfl_xor_sync(0xffffffffu, c, off);
+    }
+    const long long start = look_back(
+        scan, b, c, static_cast<unsigned long long>(epoch) << SCAN_TAG_SHIFT,
+        lane);
+    if (lane == 0) {
+      const long long end = start + c;
+      pair_ptr[b + 1] = static_cast<int32_t>(min(end, 2147483647LL));
+      if (b == 0) pair_ptr[0] = 0;
+      if (b == nb - 1) {
+        head[0] = end > cap ? 1 : 0;
+        head[1] = end;
+      }
+      s_start = end > cap ? -1 : start;  // -1: past the gate, write nothing
+    }
+  }
+  __syncthreads();
+  if (s_start >= 0 && m) {  // the row's pairs, in ascending j
+    long long at = s_start + __popc(bal & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) at += s_warp[w];
+    pair_bj[at] = i;
   }
 }
 
-__global__ void __launch_bounds__(PAIR_THREADS)
-prep_pairs_kernel(const double* __restrict__ box, int32_t nb, double s,
-                  int64_t cap, int32_t* __restrict__ pair_ptr,
-                  int32_t* __restrict__ pair_bj, unsigned long long* scan,
-                  int32_t* pair_ticket, int64_t* __restrict__ head) {
-  __shared__ int32_t s_row;
-  __shared__ long long s_sum[PAIR_WARPS];
+// Row r's pairs, one warp: every j < r whose box meets r's box inflated by
+// s, in ascending j. It tests 32 group boxes at a time, then the members of
+// each group whose box meets. Each pair goes to out[at + its place] where
+// that place is below `room`; returns the row's count.
+__device__ int row_pairs(int32_t r, const double* __restrict__ box, int nb,
+                         const double* __restrict__ gbox, int ng, double s,
+                         int32_t* out, long long at, long long room,
+                         int lane) {
+  double lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = __dsub_rn(box[a * nb + r], s);
+    hi[a] = __dadd_rn(box[(3 + a) * nb + r], s);
+  }
+  int cnt = 0;
+  const int32_t last_group = r / GROUP;
+  for (int32_t g0 = 0; g0 <= last_group; g0 += 32) {
+    const int32_t g = g0 + lane;
+    bool gm = g <= last_group;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      gm = gm && lo[a] <= gbox[(3 + a) * ng + g] && hi[a] >= gbox[a * ng + g];
+    }
+    unsigned groups = __ballot_sync(0xffffffffu, gm);
+    while (groups) {
+      const int32_t j = (g0 + __ffs(groups) - 1) * GROUP + lane;
+      groups &= groups - 1;
+      bool m = j < r;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        m = m && lo[a] <= box[(3 + a) * nb + j] && hi[a] >= box[a * nb + j];
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, m);
+      const int place = cnt + __popc(bal & ((1u << lane) - 1u));
+      if (m && place < room) out[at + place] = j;
+      cnt += __popc(bal);
+    }
+  }
+  return cnt;
+}
+
+// The first launch of a larger range: one CTA a block (block_work), and,
+// when gbox is not null, each group's last CTA (by the group's ticket)
+// writes the group's union box.
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
+prep_blocks_kernel(const double* __restrict__ pos,
+                   const uint8_t* __restrict__ analyze, int64_t n,
+                   int32_t nb, T* __restrict__ planes, double* box,
+                   double* __restrict__ gbox,
+                   int32_t* gcount,  // ng, zero on entry
+                   uint8_t* __restrict__ state, int32_t* __restrict__ flags,
+                   int32_t* __restrict__ tickets) {
+  __shared__ double s_row[6];
+  __shared__ int s_last;
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int32_t b = blockIdx.x;
+  block_work<T>(pos, analyze, n, nb, b, planes, box, state, flags, tickets,
+                s_row);
+  if (gbox == nullptr) return;
+  const int32_t g = b / GROUP;
+  if (i == 0) {
+    const int32_t last = min(GROUP, nb - g * GROUP) - 1;
+    s_last = take_ticket(&gcount[g], last) == last;
+  }
+  __syncthreads();
+  if (!s_last || i >= 32) return;
+  // the group's last CTA, one warp: lane l holds member g * GROUP + l
+  __threadfence();
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  const int32_t ng = (nb + GROUP - 1) / GROUP;
+  const int32_t j = g * GROUP + lane;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    const bool is_max = a >= 3;
+    double v = j < nb ? __ldcg(&box[a * nb + j]) : (is_max ? -inf : inf);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const double o = __shfl_xor_sync(0xffffffffu, v, off);
+      v = is_max ? fmax(v, o) : fmin(v, o);  // a NaN is left out
+    }
+    if (lane == 0) gbox[a * ng + g] = v;
+  }
+}
+
+// The pair CSR of a range of more than PREP_ONE_LAUNCH and fewer than
+// the wrapper's PREP_GROUPED_FROM blocks, after prep_blocks_kernel
+// without group boxes: one CTA a row, rows taken in ascending ticket
+// order; it tests every earlier block (a few chunks of ROWS_THREADS at
+// these sizes), counts the row, gets its start by look_back over rows,
+// then tests the row again and writes its pairs. The last row writes the
+// gate.
+__global__ void __launch_bounds__(ROWS_THREADS)
+prep_rows_kernel(const double* __restrict__ box, int32_t nb, double s,
+                 int64_t cap, int32_t* __restrict__ pair_ptr,
+                 int32_t* __restrict__ pair_bj,
+                 unsigned long long* scan,  // nb
+                 int32_t* ticket,           // 1, zero on entry
+                 int32_t epoch,             // 1 .. PREP_EPOCHS - 1
+                 int64_t* __restrict__ head) {
+  constexpr int WARPS = ROWS_THREADS / 32;
+  __shared__ int32_t s_r;
+  __shared__ int32_t s_sum[WARPS];
   __shared__ long long s_start;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  if (t == 0) s_row = atomicAdd(pair_ticket, 1);
+  if (t == 0) s_r = take_ticket(ticket, nb - 1);
   __syncthreads();
-  const int32_t r = s_row;
+  const int32_t r = s_r;
   double lo[3], hi[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -634,60 +913,44 @@ prep_pairs_kernel(const double* __restrict__ box, int32_t nb, double s,
   };
 
   // the row's count
-  long long cnt = 0;
-  for (int32_t j0 = 0; j0 < r; j0 += PAIR_THREADS) cnt += meets(j0 + t);
+  int cnt = 0;
+  for (int32_t j0 = 0; j0 < r; j0 += ROWS_THREADS) cnt += meets(j0 + t);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
   }
   if (lane == 0) s_sum[warp] = cnt;
   __syncthreads();
-  if (t == 0) {
+  if (warp == 0) {
     long long c = 0;
-    for (int w = 0; w < PAIR_WARPS; ++w) c += s_sum[w];
-    cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> mine(
-        scan[r]);
-    long long start = 0;
-    if (r > 0) {
-      mine.store(SCAN_AGGREGATE | static_cast<unsigned long long>(c),
-                 cuda::memory_order_relaxed);
-      for (int32_t j = r - 1;;) {
-        cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> st(
-            scan[j]);
-        const unsigned long long v = st.load(cuda::memory_order_relaxed);
-        if (v == 0ull) {
-          __nanosleep(32);
-          continue;
-        }
-        start += static_cast<long long>(v & SCAN_VALUE);
-        if ((v & ~SCAN_VALUE) == SCAN_PREFIX || j == 0) break;
-        --j;
+    for (int w = 0; w < WARPS; ++w) c += s_sum[w];
+    const long long start = look_back(
+        scan, r, c, static_cast<unsigned long long>(epoch) << SCAN_TAG_SHIFT,
+        lane);
+    if (lane == 0) {
+      const long long end = start + c;
+      pair_ptr[r + 1] = static_cast<int32_t>(min(end, 2147483647LL));
+      if (r == 0) pair_ptr[0] = 0;
+      if (r == nb - 1) {
+        head[0] = end > cap ? 1 : 0;
+        head[1] = end;
       }
+      s_start = end > cap ? -1 : start;  // -1: past the gate, write nothing
     }
-    const long long end = start + c;
-    mine.store(SCAN_PREFIX | static_cast<unsigned long long>(end),
-               cuda::memory_order_relaxed);
-    pair_ptr[r + 1] = static_cast<int32_t>(min(end, 2147483647LL));
-    if (r == 0) pair_ptr[0] = 0;
-    if (r == nb - 1) {
-      head[0] = end > cap ? 1 : 0;
-      head[1] = end;
-    }
-    s_start = end > cap ? -1 : start;  // -1: past the gate, write nothing
   }
   __syncthreads();
 
-  // the row's pairs, in ascending bj
+  // the row's pairs, in ascending j
   long long base = s_start;
   if (base < 0) return;
-  for (int32_t j0 = 0; j0 < r; j0 += PAIR_THREADS) {
+  for (int32_t j0 = 0; j0 < r; j0 += ROWS_THREADS) {
     const bool m = meets(j0 + t);
     const unsigned bal = __ballot_sync(0xffffffffu, m);
     if (lane == 0) s_sum[warp] = __popc(bal);
     __syncthreads();
     long long at = base;
     long long chunk = 0;
-    for (int w = 0; w < PAIR_WARPS; ++w) {
+    for (int w = 0; w < WARPS; ++w) {
       at += w < warp ? s_sum[w] : 0;
       chunk += s_sum[w];
     }
@@ -697,19 +960,113 @@ prep_pairs_kernel(const double* __restrict__ box, int32_t nb, double s,
   }
 }
 
+// The pair CSR of a range of at least PREP_GROUPED_FROM blocks, after
+// prep_blocks_kernel: one CTA a tile of TILE rows, a warp a row, tiles
+// taken in ascending ticket order. Each warp counts its row and keeps up
+// to ROW_KEEP of its pairs in shared memory; warp 0 scans the tile and
+// gets the tile's start by look_back over tiles; then each warp writes
+// its pairs, from shared memory, or by testing its row again when it had
+// more. The last tile writes the gate.
+__global__ void __launch_bounds__(PAIR_THREADS)
+prep_pairs_kernel(const double* __restrict__ box,
+                  const double* __restrict__ gbox, int32_t nb, double s,
+                  int64_t cap, int32_t* __restrict__ pair_ptr,
+                  int32_t* __restrict__ pair_bj,
+                  unsigned long long* scan,  // ceil(nb / TILE)
+                  int32_t* ticket,           // 1, zero on entry
+                  int32_t epoch,             // 1 .. PREP_EPOCHS - 1
+                  int64_t* __restrict__ head) {
+  __shared__ int32_t s_tile;
+  __shared__ int32_t s_cnt[TILE];
+  __shared__ long long s_at[TILE];
+  __shared__ int32_t s_keep[TILE][ROW_KEEP];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int32_t ng = (nb + GROUP - 1) / GROUP;
+  if (t == 0) s_tile = take_ticket(ticket, (nb - 1) / TILE);
+  __syncthreads();
+  const int32_t tile = s_tile;
+  const int32_t r0 = tile * TILE;
+  const int rows = min(TILE, nb - r0);
+  if (warp < rows) {
+    const int c = row_pairs(r0 + warp, box, nb, gbox, ng, s, s_keep[warp],
+                            0, ROW_KEEP, lane);
+    if (lane == 0) s_cnt[warp] = c;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const long long c = lane < rows ? s_cnt[lane] : 0;
+    long long incl = c;
+#pragma unroll
+    for (int off = 1; off < TILE; off <<= 1) {
+      const long long o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += o;
+    }
+    const long long total = __shfl_sync(0xffffffffu, incl, TILE - 1);
+    const long long start = look_back(
+        scan, tile, total,
+        static_cast<unsigned long long>(epoch) << SCAN_TAG_SHIFT, lane);
+    if (lane == 0) {
+      if (tile == 0) pair_ptr[0] = 0;
+      if (r0 + rows == nb) {
+        head[0] = start + total > cap ? 1 : 0;
+        head[1] = start + total;
+      }
+    }
+    if (lane < rows) {
+      const long long end = start + incl;
+      pair_ptr[r0 + lane + 1] = static_cast<int32_t>(min(end, 2147483647LL));
+      s_at[lane] = end > cap ? -1 : end - c;  // -1: past the gate
+    }
+  }
+  __syncthreads();
+  if (warp < rows && s_at[warp] >= 0) {
+    const int c = s_cnt[warp];
+    if (c <= ROW_KEEP) {
+      for (int k = lane; k < c; k += 32) {
+        pair_bj[s_at[warp] + k] = s_keep[warp][k];
+      }
+    } else {
+      row_pairs(r0 + warp, box, nb, gbox, ng, s, pair_bj, s_at[warp], c,
+                lane);
+    }
+  }
+}
+
 template <typename T>
-cudaError_t launch_prep_blocks(const double* pos, const uint8_t* analyze,
-                               int64_t n, T* planes, double* box,
-                               unsigned long long* scan,
-                               int32_t* pair_ticket, uint8_t* state,
-                               int32_t* flags, int32_t* tickets,
-                               cudaStream_t stream) {
+int prep_one(const double* pos, const uint8_t* analyze, int64_t n,
+             T* planes, double* box, int32_t* ready,
+             unsigned long long* status, int32_t epoch, uint8_t* state,
+             int32_t* flags, int32_t* tickets, double s, int64_t cap,
+             int32_t* pair_ptr, int32_t* pair_bj, int64_t* head,
+             void* stream) {
   const int64_t nb = (n + BLOCK - 1) / BLOCK;
-  if (nb <= 0) return cudaSuccess;
-  prep_blocks_kernel<T><<<static_cast<unsigned>(nb), BLOCK, 0, stream>>>(
-      pos, analyze, n, static_cast<int32_t>(nb), planes, box, scan,
-      pair_ticket, state, flags, tickets);
-  return cudaGetLastError();
+  if (nb <= 0) return 0;
+  if (nb > PREP_ONE_LAUNCH || epoch <= 0 || epoch >= PREP_EPOCHS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  prep_one_kernel<T><<<static_cast<unsigned>(nb), BLOCK, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      pos, analyze, n, static_cast<int32_t>(nb), planes, box, ready,
+      ready + 1, status, epoch, state, flags, tickets, s, cap, pair_ptr,
+      pair_bj, head);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int prep_blocks(const double* pos, const uint8_t* analyze, int64_t n,
+                T* planes, double* box, double* gbox, int32_t* gcount,
+                uint8_t* state, int32_t* flags, int32_t* tickets,
+                void* stream) {
+  const int64_t nb = (n + BLOCK - 1) / BLOCK;
+  if (nb <= 0) return 0;
+  if (nb > PREP_MAX_BLOCKS) return static_cast<int>(cudaErrorInvalidValue);
+  prep_blocks_kernel<T><<<static_cast<unsigned>(nb), BLOCK, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      pos, analyze, n, static_cast<int32_t>(nb), planes, box, gbox, gcount,
+      state, flags, tickets);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -779,39 +1136,91 @@ int poisson_decide(int64_t n, int32_t b0, int32_t b1, const int64_t* offsets,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The prep of one range of n points (nb = ceil(n / BLOCK) blocks): first
-// poisson_prep_blocks_*, then poisson_prep_pairs on the same stream.
-// `scan` holds nb status words and `tickets` nb entries; `cap` is pair_bj's
-// capacity, MAX_PAIRS_PER_BLOCK * nb - nb.
+// The prep of one range of n points (nb = ceil(n / BLOCK) blocks): when
+// nb <= poisson_prep_one_launch(), poisson_prep_one_*; otherwise
+// poisson_prep_blocks_*, then poisson_prep_rows (gbox and gcount null) or,
+// from the wrapper's PREP_GROUPED_FROM blocks, poisson_prep_pairs, on the
+// same stream. box
+// holds 6 nb doubles. Both take ready (1 + nb int32: the ticket, 0 on
+// entry and when the launch ends, then the one launch's ready flags),
+// status (nb look-back words) and `epoch`, 1 .. poisson_prep_epochs() -
+// 1, which no flag or word holds from an earlier launch (buffers zeroed
+// when made; a count of the launches on them, started again over zeroed
+// buffers when it wraps). The two also take gbox (6 ng doubles, any
+// content) and gcount (ng int32, ng = ceil(nb / poisson_prep_group()), 0
+// on entry and when the launch ends). `cap` is pair_bj's capacity,
+// MAX_PAIRS_PER_BLOCK * nb - nb.
+
+int poisson_prep_one_launch() { return PREP_ONE_LAUNCH; }
+int poisson_prep_group() { return GROUP; }
+int poisson_prep_epochs() { return PREP_EPOCHS; }
+
+int poisson_prep_one_f64(const double* pos, const uint8_t* analyze,
+                         int64_t n, double* planes, double* box,
+                         int32_t* ready, unsigned long long* status,
+                         int32_t epoch, uint8_t* state, int32_t* flags,
+                         int32_t* tickets,
+                         double s, int64_t cap, int32_t* pair_ptr,
+                         int32_t* pair_bj, int64_t* head, void* stream) {
+  return prep_one<double>(pos, analyze, n, planes, box, ready, status,
+                          epoch, state, flags, tickets, s, cap, pair_ptr,
+                          pair_bj, head, stream);
+}
+
+int poisson_prep_one_f32(const double* pos, const uint8_t* analyze,
+                         int64_t n, float* planes, double* box,
+                         int32_t* ready, unsigned long long* status,
+                         int32_t epoch, uint8_t* state, int32_t* flags,
+                         int32_t* tickets,
+                         double s, int64_t cap, int32_t* pair_ptr,
+                         int32_t* pair_bj, int64_t* head, void* stream) {
+  return prep_one<float>(pos, analyze, n, planes, box, ready, status, epoch,
+                         state, flags, tickets, s, cap, pair_ptr, pair_bj,
+                         head, stream);
+}
 
 int poisson_prep_blocks_f64(const double* pos, const uint8_t* analyze,
                             int64_t n, double* planes, double* box,
-                            unsigned long long* scan, int32_t* pair_ticket,
-                            uint8_t* state, int32_t* flags, int32_t* tickets,
-                            void* stream) {
-  return static_cast<int>(launch_prep_blocks<double>(
-      pos, analyze, n, planes, box, scan, pair_ticket, state, flags, tickets,
-      static_cast<cudaStream_t>(stream)));
+                            double* gbox, int32_t* gcount, uint8_t* state,
+                            int32_t* flags, int32_t* tickets, void* stream) {
+  return prep_blocks<double>(pos, analyze, n, planes, box, gbox, gcount,
+                             state, flags, tickets, stream);
 }
 
 int poisson_prep_blocks_f32(const double* pos, const uint8_t* analyze,
                             int64_t n, float* planes, double* box,
-                            unsigned long long* scan, int32_t* pair_ticket,
-                            uint8_t* state, int32_t* flags, int32_t* tickets,
-                            void* stream) {
-  return static_cast<int>(launch_prep_blocks<float>(
-      pos, analyze, n, planes, box, scan, pair_ticket, state, flags, tickets,
-      static_cast<cudaStream_t>(stream)));
+                            double* gbox, int32_t* gcount, uint8_t* state,
+                            int32_t* flags, int32_t* tickets, void* stream) {
+  return prep_blocks<float>(pos, analyze, n, planes, box, gbox, gcount,
+                            state, flags, tickets, stream);
 }
 
-int poisson_prep_pairs(const double* box, int32_t nb, double s, int64_t cap,
-                       int32_t* pair_ptr, int32_t* pair_bj,
-                       unsigned long long* scan, int32_t* pair_ticket,
+int poisson_prep_pairs(const double* box, const double* gbox, int32_t nb,
+                       double s, int64_t cap, int32_t* pair_ptr,
+                       int32_t* pair_bj, int32_t* ready,
+                       unsigned long long* status, int32_t epoch,
                        int64_t* head, void* stream) {
   if (nb <= 0) return 0;
-  prep_pairs_kernel<<<nb, PAIR_THREADS, 0,
+  if (nb > PREP_MAX_BLOCKS || epoch <= 0 || epoch >= PREP_EPOCHS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  prep_pairs_kernel<<<(nb + TILE - 1) / TILE, PAIR_THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      box, nb, s, cap, pair_ptr, pair_bj, scan, pair_ticket, head);
+      box, gbox, nb, s, cap, pair_ptr, pair_bj, status, ready, epoch, head);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int poisson_prep_rows(const double* box, int32_t nb, double s, int64_t cap,
+                      int32_t* pair_ptr, int32_t* pair_bj, int32_t* ready,
+                      unsigned long long* status, int32_t epoch,
+                      int64_t* head, void* stream) {
+  if (nb <= 0) return 0;
+  if (nb > PREP_MAX_BLOCKS || epoch <= 0 || epoch >= PREP_EPOCHS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  prep_rows_kernel<<<nb, ROWS_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      box, nb, s, cap, pair_ptr, pair_bj, status, ready, epoch, head);
   return static_cast<int>(cudaGetLastError());
 }
 

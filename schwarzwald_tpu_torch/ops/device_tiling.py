@@ -27,9 +27,9 @@ candidate levels, the JITTERED configs, max_depth and min_node_level:
 `level_plan` decides it on the host for both routes.
 
 `octree_select_grid` dispatches on the keys' device: a CUDA tensor
-launches the kernel (`octree_select_grid_cuda`: the whole plan enqueued on
-the current stream, nothing read back, launches counted in `x2_launches`
-where they go out), a CPU tensor runs the plain version
+launches the kernel (`octree_select_grid_cuda`: one cooperative launch on
+the current stream for the whole plan, nothing read back, counted in
+`x2_launches` where it goes out), a CPU tensor runs the plain version
 (`octree_select_grid_torch`). In the plain version cells are contiguous
 runs of the sorted order, so every per-cell quantity is a prefix scan, a
 gather, or one scatter-min.
@@ -377,6 +377,8 @@ _lock = threading.Lock()
 x2_launches = 0  # kernels of csrc/sweep.cu launched, counted where launched
 
 LEVEL_INTS = 9 + 3 * 64  # one level of the packed plan (csrc/sweep.cu Level)
+# levels a plan holds at most: node levels -1 .. MAX_LEVELS - 1
+MAX_PLAN_LEVELS = MAX_LEVELS + 1
 
 
 def reset_counters() -> None:
@@ -391,9 +393,13 @@ def snapshot() -> dict:
 
 
 def _pack_plan(plan: list) -> np.ndarray:
-    """The plan as csrc/sweep.cu reads it: LEVEL_INTS int32 per level
-    (node_level, terminal, node_groups, pick_groups, pick, depth, levels,
-    actual, plen, then the three permutation rows of 64)."""
+    """The plan as csrc/sweep.cu reads it from the launch's device buffer:
+    LEVEL_INTS int32 per level (node_level, terminal, node_groups,
+    pick_groups, pick, depth, levels, actual, plen, then the three
+    permutation rows of 64), at least one row."""
+    if len(plan) > MAX_PLAN_LEVELS:
+        raise ValueError(f"a plan holds at most {MAX_PLAN_LEVELS} levels, "
+                         f"got {len(plan)}")
     packed = np.zeros((max(len(plan), 1), LEVEL_INTS), dtype=np.int32)
     for row, lv in zip(packed, plan):
         row[:6] = (lv["node_level"], lv["terminal"], lv["node_groups"],
@@ -410,8 +416,8 @@ _c_fn = None
 
 
 def _kernel_fn():
-    """ctypes entry point of csrc/sweep.cu (built and loaded at first
-    use)."""
+    """ctypes entry points of csrc/sweep.cu (built and loaded at first
+    use): {"config": x2_config, "sweep": x2_sweep}."""
     global _c_fn
     if _c_fn is None:
         from ._cuda_build import load_kernel_library
@@ -419,14 +425,16 @@ def _kernel_fn():
         lib = load_kernel_library("sweep")
         if lib.x2_level_ints() != LEVEL_INTS:
             raise RuntimeError("csrc/sweep.cu packs another plan layout")
-        fn = lib.x2_sweep
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        _c_fn = fn
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        cint = ctypes.POINTER(i32)
+        config = lib.x2_config
+        config.argtypes = [i64, i32, cint, cint, cint, ctypes.POINTER(i64)]
+        sweep = lib.x2_sweep
+        sweep.argtypes = [p, p, i64, p, p, p, p, p, p, p, i32, p, i64, p,
+                          i32, i32, i32, i32, p]
+        for fn in (config, sweep):
+            fn.restype = ctypes.c_int
+        _c_fn = {"config": config, "sweep": sweep}
     return _c_fn
 
 
@@ -475,11 +483,12 @@ def octree_select_grid_cuda(key: torch.Tensor, cands, max_points: int,
                             root_min=None, root_max=None, jit_cfgs=None,
                             min_node_level: int = -1,
                             out: torch.Tensor | None = None) -> torch.Tensor:
-    """octree_select_grid by the kernel of csrc/sweep.cu: the whole plan
-    enqueued on the current stream of the keys' device, nothing read
-    back. `out` (tests): a contiguous (n,) int8 CUDA tensor to write, else
-    one from torch.empty. Scratch comes from torch.empty, of any
-    content."""
+    """octree_select_grid by the kernel of csrc/sweep.cu: one cooperative
+    launch on the current stream of the keys' device for the whole plan
+    (which goes to the card in a buffer of its own), nothing read back. A
+    launch the card refuses raises. `out` (tests): a contiguous (n,) int8
+    CUDA tensor to write, else one from torch.empty. Scratch comes from
+    torch.empty, of any content."""
     _check_inputs(key, positions, strategy, root_min, root_max, jit_cfgs)
     n = key.shape[0]
     device = key.device
@@ -498,34 +507,49 @@ def octree_select_grid_cuda(key: torch.Tensor, cands, max_points: int,
     if positions is not None and root_min is not None:
         bounds[:3] = [float(v) for v in root_min]
         bounds[3:] = [float(v) for v in root_max]
-    fn = _kernel_fn()
-    launched = ctypes.c_int(0)
-    # The scratch may be freed while the kernels still run: the caching
-    # allocator hands a block back only to work queued after them on the
-    # same stream, where they were allocated and launched.
+    fns = _kernel_fn()
+
+    def ptr(t):
+        return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+    # The scratch and the plan's buffer may be freed while the kernel still
+    # runs: the caching allocator hands a block back only to work queued
+    # after it on the same stream, where they were allocated and launched.
     with torch.cuda.device(device):
+        grid, tile, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        work_bytes = ctypes.c_int64()
+        err = fns["config"](n, int(distance), ctypes.byref(grid),
+                            ctypes.byref(tile), ctypes.byref(smem),
+                            ctypes.byref(work_bytes))
+        if err != 0:
+            raise RuntimeError(f"octree sweep kernel: no launch fits the "
+                               f"card: CUDA error {err}")
+        # from pinned memory: the copy waits on nothing
+        plan_t = torch.from_numpy(packed).pin_memory().to(
+            device, non_blocking=True)
         alive = torch.empty(len(plan) + 1, dtype=torch.int32, device=device)
         count = torch.empty(2 * n, dtype=torch.int32, device=device)
         index = torch.empty(2 * n, dtype=torch.int32, device=device)
         dist = (torch.empty(2 * n, dtype=torch.int64, device=device)
                 if distance else None)
+        pdist = (torch.empty(n, dtype=torch.int64, device=device)
+                 if distance else None)
+        work = (torch.empty(work_bytes.value, dtype=torch.uint8,
+                            device=device) if work_bytes.value else None)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.c_void_p(key.data_ptr()),
-                 ctypes.c_void_p(positions.data_ptr() if distance else 0),
-                 n, ctypes.c_void_p(out.data_ptr()),
-                 ctypes.c_void_p(alive.data_ptr()),
-                 ctypes.c_void_p(count.data_ptr()),
-                 ctypes.c_void_p(index.data_ptr()),
-                 ctypes.c_void_p(0 if dist is None else dist.data_ptr()),
-                 packed.ctypes.data_as(ctypes.c_void_p), len(plan),
-                 bounds.ctypes.data_as(ctypes.c_void_p), int(max_points),
-                 ctypes.c_void_p(stream), ctypes.byref(launched))
-    global x2_launches
-    with _lock:
-        x2_launches += launched.value
+        err = fns["sweep"](ptr(key), ptr(positions if distance else None), n,
+                           ptr(out), ptr(alive), ptr(count), ptr(index),
+                           ptr(dist), ptr(pdist), ptr(plan_t), len(plan),
+                           bounds.ctypes.data_as(ctypes.c_void_p),
+                           int(max_points), ptr(work), int(distance),
+                           grid.value, tile.value, smem.value,
+                           ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"octree sweep kernel launch failed: CUDA error "
                            f"{err}")
+    global x2_launches
+    with _lock:
+        x2_launches += 1
     return out
 
 

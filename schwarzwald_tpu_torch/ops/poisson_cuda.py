@@ -71,6 +71,16 @@ import numpy as np
 import torch
 
 BLOCK = 512                 # the kernels' block size (csrc/poisson.cu)
+# the prep: a range of at most PREP_ONE_LAUNCH blocks is one launch, a
+# larger one two: the blocks, then a CTA a row testing every earlier block
+# or, from PREP_GROUPED_FROM blocks, tiles of rows testing a union box per
+# PREP_GROUP blocks first (csrc/poisson.cu)
+PREP_ONE_LAUNCH = 512
+PREP_GROUPED_FROM = 3200
+PREP_GROUP = 32
+# the prep's epochs a workspace counts through, 1 .. PREP_EPOCHS - 1,
+# before it zeroes its flags and status words again
+PREP_EPOCHS = 1 << 16
 MAX_PAIRS_PER_BLOCK = 96    # pair-list gate (poisson_pallas.py:59)
 DEVICE_FLOOR = 4096         # smallest range sent to the device
 # close-list entries (int32 point indices) held at once: 256 MB. A window
@@ -277,6 +287,25 @@ def pair_csr_torch(planes: torch.Tensor, s: float, max_pairs: int,
     return ptr.to(torch.int32), pair_bj[:n_cross]
 
 
+def prep_launches_per_range(n_blocks: int) -> int:
+    """Kernel launches of the prep of a range of `n_blocks` blocks on the
+    card: one up to PREP_ONE_LAUNCH blocks, two above."""
+    if n_blocks <= 0:
+        return 0
+    return 1 if n_blocks <= PREP_ONE_LAUNCH else 2
+
+
+def prep_grouped(n_blocks: int) -> bool:
+    """Whether the prep's second launch tests group boxes first (the
+    root-sized ranges), not every earlier block."""
+    return n_blocks >= PREP_GROUPED_FROM
+
+
+def prep_groups(n_blocks: int) -> int:
+    """The group boxes of a range's prep in two launches."""
+    return max(1, -(-n_blocks // PREP_GROUP))
+
+
 def gate_capacity(n_blocks: int) -> int:
     """pair_bj's capacity on the range path: the cross pairs the gate
     admits (it counts each block's pair with itself too), about 0.75 bytes
@@ -288,7 +317,8 @@ def prep_torch(positions: torch.Tensor, analyze: torch.Tensor | None,
                spacing: float, precision: str = "f64",
                block: int = BLOCK) -> tuple:
     """The plain version of the prep kernels (csrc/poisson.cu
-    prep_blocks_kernel, prep_pairs_kernel) on (n, 3) float64 positions and
+    prep_one_kernel; prep_blocks_kernel, then prep_rows_kernel or
+    prep_pairs_kernel) on (n, 3) float64 positions and
     an optional (n,) uint8 analyze mask: (planes, pair_ptr, pair_bj, head).
     planes: (3, n) in the mode's dtype, x = NaN where the point is not
     analyzed (`_masked`). pair_ptr: (n_blocks + 1,) int32, and the first
@@ -357,22 +387,29 @@ _c_fns: dict = {}
 def _kernel_fns(precision: str) -> dict:
     """ctypes entry points of csrc/poisson.cu for the mode (built and
     loaded at first use): close_count, close_fill, decide, the prep's
-    prep_blocks and prep_pairs, and copy. Each only queues work on a
-    stream and returns in microseconds, so it is called holding the
-    interpreter lock (ctypes.PyDLL): with the engine's 8-25 sending threads
-    a thread that let the lock go waited about 0.6 ms to win it back
-    (PERF.md section 5), and a range makes eight such calls."""
+    prep_one (one launch), prep_blocks and prep_rows or prep_pairs (two),
+    and copy.
+    Each only queues work on a stream and returns in microseconds, so it
+    is called holding the interpreter lock (ctypes.PyDLL): with the
+    engine's 8-25 sending threads a thread that let the lock go waited
+    about 0.6 ms to win it back (PERF.md section 5), and a range makes
+    seven or eight such calls."""
     fns = _c_fns.get(precision)
     if fns is not None:
         return fns
     from ._cuda_build import load_kernel_library
 
     lib = load_kernel_library("poisson")
-    lib.poisson_block_size.argtypes = []
-    lib.poisson_block_size.restype = ctypes.c_int
-    if lib.poisson_block_size() != BLOCK:
-        raise RuntimeError("csrc/poisson.cu BLOCK disagrees with "
-                           "ops/poisson_cuda.BLOCK")
+    for name, want in (("poisson_block_size", BLOCK),
+                       ("poisson_prep_one_launch", PREP_ONE_LAUNCH),
+                       ("poisson_prep_group", PREP_GROUP),
+                       ("poisson_prep_epochs", PREP_EPOCHS)):
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"csrc/poisson.cu {name}() disagrees with "
+                               f"ops/poisson_cuda ({want})")
     held = ctypes.PyDLL(lib._name)
     scalar = ctypes.c_double if precision == "f64" else ctypes.c_float
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -380,15 +417,21 @@ def _kernel_fns(precision: str) -> dict:
     fns = {"close_count": getattr(held, f"poisson_close_count_{precision}"),
            "close_fill": getattr(held, f"poisson_close_fill_{precision}"),
            "decide": held.poisson_decide,
+           "prep_one": getattr(held, f"poisson_prep_one_{precision}"),
            "prep_blocks": getattr(held, f"poisson_prep_blocks_{precision}"),
            "prep_pairs": held.poisson_prep_pairs,
+           "prep_rows": held.poisson_prep_rows,
            "copy": held.poisson_copy}
     fns["close_count"].argtypes = common + [p, p, p]
     fns["close_fill"].argtypes = common + [p, p, p, p, p]
     fns["decide"].argtypes = [i64, i32, i32, p, p, p, p, p, p, p, p]
+    fns["prep_one"].argtypes = [p, p, i64, p, p, p, p, i32, p, p, p,
+                                ctypes.c_double, i64, p, p, p, p]
     fns["prep_blocks"].argtypes = [p, p, i64, p, p, p, p, p, p, p, p]
-    fns["prep_pairs"].argtypes = [p, i32, ctypes.c_double, i64, p, p, p, p,
-                                  p, p]
+    fns["prep_pairs"].argtypes = [p, p, i32, ctypes.c_double, i64, p, p, p,
+                                  p, i32, p, p]
+    fns["prep_rows"].argtypes = [p, i32, ctypes.c_double, i64, p, p, p, p,
+                                 i32, p, p]
     fns["copy"].argtypes = [p, p, i64, ctypes.c_int, p]
     for fn in fns.values():
         fn.restype = ctypes.c_int
@@ -458,11 +501,14 @@ def _reach(sq: float) -> float:
 # are there for the tests of the range path (tests/test_torch_poisson_prep.py
 # drives `_range_mask` and `range_prep` on CPU workspaces).
 
-def _prep(pos, analyze, n, nb, spacing, precision, buf) -> None:
+def _prep(pos, analyze, n, nb, spacing, precision, buf) -> int:
     """The prep of a range into buf.planes, .ptr, .bj and .head[:2] (the
-    prep kernels; on the card it also zeroes buf.state, .flags and
-    .tickets and uses buf.box, .scan and .misc as scratch). pos is the
-    range's (3n,) float64 positions, analyze its (n,) uint8 mask or None."""
+    prep kernels: one launch up to PREP_ONE_LAUNCH blocks, two above; on
+    the card it also zeroes buf.state, .flags and .tickets and uses
+    buf.box and .gbox as scratch, buf.gcount (zero before and after), and
+    buf.ready and .status with the epoch of buf.ws). pos is the
+    range's (3n,) float64 positions, analyze its (n,) uint8 mask or None.
+    Returns the kernels it launched (0 on the CPU)."""
     if pos.device.type == "cpu":
         planes, ptr, bj, head = prep_torch(pos.view(n, 3), analyze, spacing,
                                            precision)
@@ -470,15 +516,33 @@ def _prep(pos, analyze, n, nb, spacing, precision, buf) -> None:
         buf.ptr.copy_(ptr)
         buf.bj.copy_(bj)
         buf.head[:2].copy_(head)
-        return
+        return 0
     fns = _kernel_fns(precision)
+    s, cap = inflation(spacing), gate_capacity(nb)
+    epoch = buf.ws.prep_epoch()
+    if prep_launches_per_range(nb) == 1:
+        _launch(fns["prep_one"], _ptr(pos), _ptr(analyze), n,
+                _ptr(buf.planes), _ptr(buf.box), _ptr(buf.ready),
+                _ptr(buf.status), epoch, _ptr(buf.state),
+                _ptr(buf.flags), _ptr(buf.tickets), s, cap, _ptr(buf.ptr),
+                _ptr(buf.bj), _ptr(buf.head), counter=_prep_launched)
+        return 1
+    grouped = prep_grouped(nb)
+    gbox, gcount = (buf.gbox, buf.gcount) if grouped else (None, None)
     _launch(fns["prep_blocks"], _ptr(pos), _ptr(analyze), n,
-            _ptr(buf.planes), _ptr(buf.box), _ptr(buf.scan), _ptr(buf.misc),
+            _ptr(buf.planes), _ptr(buf.box), _ptr(gbox), _ptr(gcount),
             _ptr(buf.state), _ptr(buf.flags), _ptr(buf.tickets),
             counter=_prep_launched)
-    _launch(fns["prep_pairs"], _ptr(buf.box), nb, inflation(spacing),
-            gate_capacity(nb), _ptr(buf.ptr), _ptr(buf.bj), _ptr(buf.scan),
-            _ptr(buf.misc), _ptr(buf.head), counter=_prep_launched)
+    if grouped:
+        _launch(fns["prep_pairs"], _ptr(buf.box), _ptr(buf.gbox), nb, s,
+                cap, _ptr(buf.ptr), _ptr(buf.bj), _ptr(buf.ready),
+                _ptr(buf.status), epoch, _ptr(buf.head),
+                counter=_prep_launched)
+    else:
+        _launch(fns["prep_rows"], _ptr(buf.box), nb, s, cap, _ptr(buf.ptr),
+                _ptr(buf.bj), _ptr(buf.ready), _ptr(buf.status), epoch,
+                _ptr(buf.head), counter=_prep_launched)
+    return 2
 
 
 def _close_count(fns, planes, n, sq, pair_ptr, pair_bj, b0, b1, counts,
@@ -683,6 +747,18 @@ class _Workspace:
         self.counted = counted
         self.pending = False
         self._bufs: dict = {}
+        self._epoch = 0
+
+    def prep_epoch(self) -> int:
+        """The next epoch of the prep on this workspace, 1 .. PREP_EPOCHS
+        - 1: no ready flag or status word holds it from an earlier launch
+        (they are zeroed when made, and again when the count wraps)."""
+        self._epoch += 1
+        if self._epoch >= PREP_EPOCHS:
+            for name in ("ready", "status"):
+                self._bufs[name].zero_()
+            self._epoch = 1
+        return self._epoch
 
     def _take(self, need: dict) -> dict | None:
         """Views of `need` ({name: (dtype, count, on the host)}) after
@@ -726,6 +802,8 @@ class _Workspace:
                             pin_memory=host and pinned)
             if name == "offsets":
                 t[:1].zero_()  # the windows' cumsum writes offsets[1:]
+            elif name in ("ready", "status", "gcount"):
+                t.zero_()  # the prep's tickets, flags and status words
             self._bufs[name] = t
 
     def arrays(self, n: int, precision: str, analyze: bool,
@@ -737,7 +815,11 @@ class _Workspace:
         head_host (2 + nb,) int64; "upload": pos and ana, their copies on
         the device; "prep": planes (3, n), box, ptr, bj (at the gate's
         capacity), head (gate flag, n_cross, the nb per-block close
-        totals), scan, misc; "k2": counts, blocked, flags, tickets, state,
+        totals), gbox and gcount (the two-launch prep's group boxes and
+        tickets), ready and status (the prep's ticket, the one-launch prep's
+        flags, and the look-back's status words); the last three zeroed
+        when made;
+        "k2": counts, blocked, flags, tickets, state,
         out and offsets."""
         nb = -(-n // BLOCK)
         f64, i64, i32, u8 = torch.float64, torch.int64, torch.int32, \
@@ -753,8 +835,11 @@ class _Workspace:
                      "box": (f64, 6 * nb, False),
                      "ptr": (i32, nb + 1, False),
                      "bj": (i32, gate_capacity(nb), False),
-                     "head": (i64, 2 + nb, False), "scan": (i64, nb, False),
-                     "misc": (i32, 1, False)},
+                     "head": (i64, 2 + nb, False),
+                     "gbox": (f64, 6 * prep_groups(nb), False),
+                     "gcount": (i32, prep_groups(nb), False),
+                     "ready": (i32, 1 + nb, False),
+                     "status": (i64, nb, False)},
             "k2": {"counts": (i32, nb * BLOCK, False),
                    "blocked": (u8, nb * BLOCK, False),
                    "flags": (i32, nb, False), "tickets": (i32, nb, False),
@@ -771,7 +856,7 @@ class _Workspace:
         names = {name: None for group in groups.values() for name in group
                  if name != planes}
         names["planes"] = views.pop(planes, None)
-        return SimpleNamespace(**{**names, **views})
+        return SimpleNamespace(**{**names, **views}, ws=self)
 
     def idx(self, entries: int) -> torch.Tensor | None:
         """The close-list buffer of `entries` int32, or None past the
@@ -1018,7 +1103,8 @@ def range_mask_cuda(positions: np.ndarray, spacing: float,
     (`host_*_ms`), and that thread's CPU time over the same span
     (`cpu_*_ms`); `wait_ms` is the wall time of the final synchronise;
     `t0` and `t1` are the range's start and the end of that synchronise on
-    the host's clock (`time.perf_counter`). With `trace` unset, no CUDA
+    the host's clock (`time.perf_counter`); `prep_launches` the prep's
+    kernels launched for the range. With `trace` unset, no CUDA
     event is recorded."""
     device = torch.device(device)
     if device.type != "cuda":
@@ -1080,7 +1166,7 @@ def _range_mask(ws: _Workspace, positions: np.ndarray, spacing: float,
     if analyze:
         _copy(pinned, buf.ana, buf.up_ana)
     mark()
-    _prep(buf.pos, buf.ana, n, nb, spacing, precision, buf)
+    prep_launched = _prep(buf.pos, buf.ana, n, nb, spacing, precision, buf)
     mark()
     sq = squared_spacing(spacing, precision)
     # phase A's counting pass: past the gate it returns at once on the card
@@ -1119,6 +1205,7 @@ def _range_mask(ws: _Workspace, positions: np.ndarray, spacing: float,
                   "thread": threading.current_thread().name,
                   "t0": marks[0][1], "t1": synced,
                   "windows": len(windows), "one_off": one_off,
+                  "prep_launches": prep_launched,
                   **phase_ms({"events": events}),
                   "wait_ms": (synced - marks[-1][1]) * 1e3}
         for part, (a, b) in zip(("upload", "prep", "kernel", "download"),

@@ -30,10 +30,10 @@ whether it supports the card.
 
 chip_smoke.py (phase 8) runs this under `compute-sanitizer --tool
 memcheck|racecheck|synccheck|initcheck`, restricted to the kernels
-`interleave_kernel`, `close_kernel`, `decide_kernel`, `prep_blocks_kernel`,
-`prep_pairs_kernel` and X2's `init_kernel`, `count_kernel` and
-`nearest_kernel` (X2's `decide_kernel` shares K2's name); `poisson_cases`
-and `sweep_cases` here also give its phase 2 its inputs.
+`interleave_kernel`, `close_kernel`, `decide_kernel`, `prep_one_kernel`,
+`prep_blocks_kernel`, `prep_rows_kernel`, `prep_pairs_kernel` and X2's
+`sweep_kernel`;
+`poisson_cases` and `sweep_cases` here also give its phase 2 its inputs.
 """
 from __future__ import annotations
 
@@ -50,8 +50,15 @@ ROOT_POINTS = 5_490_148         # the 10M main path's root range
 ROOT_CASE = f"root_{ROOT_POINTS}"
 DENSE_POINTS = 92_160           # 180 blocks at the pair gate's edge
 THREADS_CASE = "uniform_262144"
+# the prep's launch choice at its edges: 1 block, and PREP_ONE_LAUNCH - 1,
+# PREP_ONE_LAUNCH (one launch) and PREP_ONE_LAUNCH + 1 blocks (two); its
+# second launch's at PREP_GROUPED_FROM - 1 (a CTA a row) and
+# PREP_GROUPED_FROM blocks (tiles of rows, group boxes)
+EDGE_CASES = ("uniform_300", "analyze3_261532", "edge_262144",
+              "uniform_262145", "uniform_1637888", "uniform_1637889")
 SANITIZED_CASES = ("uniform_4096", "uniform_262144", f"dense_{DENSE_POINTS}",
-                   "clustered_192000", "duplicates_262144", "analyze3_262144")
+                   "clustered_192000", "duplicates_262144", "analyze3_262144",
+                   *EDGE_CASES)
 K1_POINTS = 10_000_001
 POISON = False  # set by --poison: the kernels run under `poisoned()`
 
@@ -94,7 +101,9 @@ def poisson_cases(names=None) -> list:
     for. The root-shaped range is the 10M main path's largest (the root's
     5,490,148 points at the root spacing, 1000 * sqrt(3) / 250); the dense
     range sits at the pair gate's edge (87.5 pairs per block, 1.8e9 close
-    pairs), so the kernels run window by window."""
+    pairs), so the kernels run window by window. EDGE_CASES sit at the
+    prep's choice between one launch and two, and between its second
+    launch's two kernels."""
     rng = np.random.default_rng(20260816)
     ext = 64.0
     both = ("f64", "f32")
@@ -116,6 +125,11 @@ def poisson_cases(names=None) -> list:
                   both))
     drawn.append((ROOT_CASE, rng.uniform(0.0, 1000.0, (ROOT_POINTS, 3)),
                   1000.0, 1000.0 * 3 ** 0.5 / 250, None, ("f64",)))
+    for name in EDGE_CASES:
+        n = int(name.rsplit("_", 1)[1])
+        drawn.append((name, rng.uniform(0.0, ext, (n, 3)), ext, 2.0,
+                      "analyze3" if name.startswith("analyze3") else None,
+                      both))
     cases = []
     for name, raw, extent, spacing, edit, modes in drawn:
         if names is not None and name not in names:
@@ -131,7 +145,9 @@ def poisson_cases(names=None) -> list:
     return cases
 
 
-GATE_CASES = ("gate_at_limit", "gate_one_past")
+GATE_CASES = ("gate_at_limit", "gate_one_past", "gate_at_limit_684",
+              "gate_one_past_544", "gate_at_limit_3674",
+              "gate_one_past_3339")
 GUARD = 4096  # int32 entries after pair_bj's capacity that must stay
 
 
@@ -151,9 +167,18 @@ def ball_blocks(k: int, far: int = 0, seed: int = 3) -> np.ndarray:
 def gate_cases() -> list:
     """(name, positions, spacing) of a range exactly at the pair gate (191
     blocks: 191 * 190 / 2 = 95 * 191 cross pairs, `gate_capacity(191)`)
-    and one one past it (192 + 1 blocks: 192 * 191 / 2 = 95 * 193 + 1)."""
+    and one one past it (192 + 1 blocks: 192 * 191 / 2 = 95 * 193 + 1),
+    both in the prep's one launch; the same in its two launches with a CTA
+    a row (361 + 323 blocks: 361 * 360 / 2 = 95 * 684; 322 + 222 blocks:
+    322 * 321 / 2 = 95 * 544 + 1) and with group boxes (836 + 2,838
+    blocks: 836 * 835 / 2 = 95 * 3,674; 797 + 2,542 blocks: 797 * 796 / 2
+    = 95 * 3,339 + 1)."""
     return [("gate_at_limit", ball_blocks(191), 5.0),
-            ("gate_one_past", ball_blocks(192, far=1), 5.0)]
+            ("gate_one_past", ball_blocks(192, far=1), 5.0),
+            ("gate_at_limit_684", ball_blocks(361, far=323), 5.0),
+            ("gate_one_past_544", ball_blocks(322, far=222), 5.0),
+            ("gate_at_limit_3674", ball_blocks(836, far=2838), 5.0),
+            ("gate_one_past_3339", ball_blocks(797, far=2542), 5.0)]
 
 
 def guarded_prep(pos: np.ndarray, spacing: float, precision: str,
@@ -180,13 +205,15 @@ def guarded_prep(pos: np.ndarray, spacing: float, precision: str,
             bool((guarded[cap:] == -7).all()))
 
 
-def check_gate(case, precision: str, device) -> str:
+def check_gate(case, precision: str, device, send: bool = True) -> str:
     """A range at or one past the pair gate: the prep kernels (poisoned
     buffers) against `prep_torch`, the guard after pair_bj intact; in f64
     the range sent through `device_poisson` as the engine sends it: past
     the gate None (the host kernel takes it), `pair_gate` counted and one
     K2 launch (the counting pass, which returns at once on the card); at
-    the gate the plain mask, in three launches a window."""
+    the gate the plain mask, in three launches a window (not for the
+    two-launch cases at the gate: their 1.7e10 close pairs and more are
+    K2's work, not the prep's). `send` False: the prep alone."""
     from . import device_poisson, poisson_cuda
 
     name, pos, spacing = case
@@ -201,7 +228,7 @@ def check_gate(case, precision: str, device) -> str:
     gate, n_cross = want[3].tolist()
     line = f"prep {name} {precision}: n_cross={n_cross} gate={gate}, " \
            f"equal to the plain version, nothing written past the capacity"
-    if precision != "f64":
+    if not send or precision != "f64" or name.startswith("gate_at_limit_"):
         return line
     before = poisson_cuda.snapshot()
     with poisoned():

@@ -260,7 +260,8 @@ def test_kernels_under_memcheck(cuda):
     proc = subprocess.run(
         [tool, "--tool", "memcheck", "--error-exitcode", "1",
          "--kernel-regex", "kns=interleave_kernel|close_kernel|decide_kernel|"
-         "prep_blocks_kernel|prep_pairs_kernel",
+         "prep_one_kernel|prep_blocks_kernel|prep_rows_kernel|"
+         "prep_pairs_kernel|sweep_kernel",
          sys.executable, "-m", "schwarzwald_tpu_torch.ops.sanitize_kernels",
          "--cases", "uniform_262144", "--threads", "0", "--k1-points",
          "100003"], cwd=root, capture_output=True, text=True, timeout=600,
@@ -272,10 +273,11 @@ def test_kernels_under_memcheck(cuda):
     assert "ERROR SUMMARY: 0 errors" in out
 
 
-# every case of sanitize_kernels.poisson_cases, the main path's root too
+# every case of sanitize_kernels.poisson_cases, the main path's root and
+# the edges of the prep's one launch too
 PREP_CASES = ("uniform_4096", "uniform_262144", "uniform_1500000",
               "clustered_192000", "duplicates_262144", "analyze3_262144",
-              "dense_92160", "root_5490148")
+              "dense_92160", "root_5490148", *sanitize_kernels.EDGE_CASES)
 
 
 @pytest.mark.parametrize("precision", ["f64", "f32"])
@@ -283,7 +285,8 @@ PREP_CASES = ("uniform_4096", "uniform_262144", "uniform_1500000",
 def test_prep_kernels_match_their_plain_version(cuda, precision, case):
     """The prep kernels equal prep_torch (pair_csr_torch and _masked) on
     the card: the planes bit for bit, the head, the pair CSR element for
-    element; two prep launches counted per call, none of K2's."""
+    element; one prep launch counted per call up to PREP_ONE_LAUNCH blocks,
+    two above, none of K2's."""
     from schwarzwald_tpu_torch.ops import sanitize_kernels
 
     (_, pos, spacing, analyze, _, _), = sanitize_kernels.poisson_cases(
@@ -291,11 +294,14 @@ def test_prep_kernels_match_their_plain_version(cuda, precision, case):
     p = torch.from_numpy(pos).to(cuda)
     a = (None if analyze is None
          else torch.from_numpy(analyze.astype(np.uint8)).to(cuda))
+    nb = -(-pos.shape[0] // poisson_cuda.BLOCK)
+    launches = 1 if nb <= poisson_cuda.PREP_ONE_LAUNCH else 2
     before = (poisson_cuda.prep_launches, poisson_cuda.snapshot()["launches"])
     got = poisson_cuda.range_prep(p, a, spacing, precision)
     torch.cuda.synchronize()
     assert (poisson_cuda.prep_launches,
-            poisson_cuda.snapshot()["launches"]) == (before[0] + 2, before[1])
+            poisson_cuda.snapshot()["launches"]) == (before[0] + launches,
+                                                     before[1])
     want = poisson_cuda.prep_torch(p, a, spacing, precision)
     assert sanitize_kernels.prep_mismatch(got, want) is None
     assert want[3].tolist()[0] == 0
@@ -310,9 +316,10 @@ def gate_case(name):
 @pytest.mark.parametrize("precision", ["f64", "f32"])
 @pytest.mark.parametrize("case", sanitize_kernels.GATE_CASES)
 def test_prep_kernels_at_the_pair_gate(cuda, precision, case):
-    """Exactly at and one past pair_bj's capacity: the prep kernels give
-    prep_torch's head and pair_ptr (and pair_bj where the gate is open),
-    and write nothing into a guard region after the capacity."""
+    """Exactly at and one past pair_bj's capacity, in the prep's one launch
+    and in its two: the prep kernels give prep_torch's head and pair_ptr
+    (and pair_bj where the gate is open), and write nothing into a guard
+    region after the capacity."""
     pos, spacing = gate_case(case)
     got, guard_kept = sanitize_kernels.guarded_prep(pos, spacing, precision,
                                                     cuda)
@@ -321,7 +328,7 @@ def test_prep_kernels_at_the_pair_gate(cuda, precision, case):
     assert sanitize_kernels.prep_mismatch(got, want) is None
     assert guard_kept
     cap = poisson_cuda.gate_capacity(got[1].numel() - 1)
-    assert got[3].tolist() == ([0, cap] if case == "gate_at_limit"
+    assert got[3].tolist() == ([0, cap] if "at_limit" in case
                                else [1, cap + 1])
 
 
@@ -532,11 +539,11 @@ SWEEP_EDGE_CASES = ("single_1", "equal_5000", "mirrored_ties",
 @pytest.mark.parametrize("strategy", ["RANDOM_GRID", "GRID_CENTER",
                                       "JITTERED"])
 def test_sweep_on_the_card_equals_cpu(cuda, strategy, case):
-    """X2's kernel on the card against the plain version on the CPU, every
-    int8 level: a uniform cloud with a dense cluster, and the checker's
-    edge cases (one point, equal keys, exact distance ties, cells across
-    the kernel's blocks, a plan that stops at re-rooting depths, max_points
-    above n)."""
+    """X2's kernel on the card, one launch, against the plain version on
+    the CPU, every int8 level: a uniform cloud with a dense cluster, and
+    the checker's edge cases (one point, equal keys, exact distance ties,
+    cells across the kernel's CTAs, a plan that stops at re-rooting
+    depths, max_points above n)."""
     if case == "uniform_and_cluster":
         rng = np.random.default_rng(12)
         pos = np.concatenate([rng.uniform(0.0, EXTENT, (20_000, 3)),
@@ -555,11 +562,124 @@ def test_sweep_on_the_card_equals_cpu(cuda, strategy, case):
     want = run("cpu").numpy()
     before = device_tiling.snapshot()["x2_launches"]
     got = run(cuda)
-    assert device_tiling.snapshot()["x2_launches"] > before
+    assert device_tiling.snapshot()["x2_launches"] == before + 1
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want)
     if case == "uniform_and_cluster":
         assert np.unique(want[want > 0]).size >= 3
+
+
+@pytest.mark.parametrize("case", ["clustered_4M_level-1",
+                                  "clustered_4M_level2"])
+@pytest.mark.parametrize("strategy", ["RANDOM_GRID", "GRID_CENTER",
+                                      "JITTERED"])
+def test_sweep_of_a_main_path_group_equals_the_plain_version(cuda, strategy,
+                                                            case):
+    """X2 on a 4M-point group of the main path's size, from the root and
+    from level 2: one launch, every level the plain version's on the
+    card."""
+    drawn = sanitize_kernels.sweep_cases({case})[0]
+    key, args, kw = sanitize_kernels.sweep_args(drawn, strategy, cuda)
+    want = device_tiling.octree_select_grid_torch(key, *args, **kw)
+    before = device_tiling.snapshot()["x2_launches"]
+    got = device_tiling.octree_select_grid_cuda(key, *args, **kw)
+    assert device_tiling.snapshot()["x2_launches"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("strategy", ["RANDOM_GRID", "GRID_CENTER"])
+def test_a_sweep_too_large_for_shared_memory_equals_the_plain_version(
+        cuda, strategy):
+    """24M points: more than the CTAs that fit on the card hold in shared
+    memory, so each CTA keeps its state in a region of device memory; one
+    launch, every level the plain version's."""
+    n = 24_000_000
+    rng = np.random.default_rng(17)
+    pos = rng.uniform(0.0, EXTENT, (n, 3))
+    keys, pos = indexing.index_points(pos, np.zeros(3), np.full(3, EXTENT))
+    order = indexing.sort_by_key(keys)
+    drawn = ("large", keys[order], np.ascontiguousarray(pos[order]), EXTENT,
+             EXTENT * 3 ** 0.5 / 250, 20_000, 100, -1)
+    del keys, pos, order
+    key, args, kw = sanitize_kernels.sweep_args(drawn, strategy, cuda)
+    want = device_tiling.octree_select_grid_torch(key, *args, **kw)
+    before = device_tiling.snapshot()["x2_launches"]
+    got = device_tiling.octree_select_grid_cuda(key, *args, **kw)
+    assert device_tiling.snapshot()["x2_launches"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def sweep_jobs(device):
+    """(key, args, kwargs, plain levels) of four sweeps: the uniform cloud
+    with a cluster under each grid sampler, and a block-edge case."""
+    rng = np.random.default_rng(16)
+    pos = np.concatenate([rng.uniform(0.0, EXTENT, (60_000, 3)),
+                          rng.normal(30.0, 0.7, (60_000, 3))])
+    keys, pos = indexing.index_points(pos, np.zeros(3), np.full(3, EXTENT))
+    order = indexing.sort_by_key(keys)
+    drawn = ("cloud", keys[order], np.ascontiguousarray(pos[order]), EXTENT,
+             2.0, 300, 100, -1)
+    edge = sanitize_kernels.sweep_cases({"block_edges_70001"})[0]
+    jobs = []
+    for case, sampler in ((drawn, "RANDOM_GRID"), (drawn, "GRID_CENTER"),
+                          (drawn, "JITTERED"), (edge, "GRID_CENTER")):
+        key, args, kw = sanitize_kernels.sweep_args(case, sampler, device)
+        jobs.append((key, args, kw, device_tiling.octree_select_grid_torch(
+            key, *args, **kw)))
+    return jobs
+
+
+def test_four_sweeps_on_four_streams_at_once(cuda):
+    """Four sweeps enqueued on four streams of one card, each enqueued
+    before any is waited on, twice over: every level the plain version's
+    (each launch carries its own plan)."""
+    jobs = sweep_jobs(cuda)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in jobs]
+    outs = []
+    for _ in range(2):
+        for s, (key, args, kw, _) in zip(streams, jobs):
+            with torch.cuda.stream(s):
+                outs.append(device_tiling.octree_select_grid_cuda(
+                    key, *args, **kw))
+    torch.cuda.synchronize()
+    for got, (_, _, _, want) in zip(outs, jobs + jobs):
+        assert torch.equal(got, want)
+
+
+def test_sweeps_and_k2_ranges_in_flight_together(cuda):
+    """Threads send K2 ranges (phase B's CTAs wait on ready flags) while
+    other threads enqueue sweeps (a cooperative launch that starts only
+    when all its CTAs fit on the card): nothing deadlocks, every mask is
+    the native host kernel's and every level the plain version's."""
+    import concurrent.futures as cf
+
+    jobs = sweep_jobs(cuda)
+    ranges = mixed_ranges(12, 90)
+    host = native.poisson_sample_kernel()
+    torch.cuda.synchronize()
+
+    def sweep(job):
+        key, args, kw, _ = job
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            got = [device_tiling.octree_select_grid_cuda(key, *args, **kw)
+                   for _ in range(3)]
+            torch.cuda.current_stream().synchronize()
+        return got
+
+    with cf.ThreadPoolExecutor(16) as pool:
+        masks = [pool.submit(poisson_cuda.range_mask_cuda, r[0], r[1], r[2])
+                 for r in ranges]
+        sweeps = [pool.submit(sweep, job) for job in jobs]
+        masks = [f.result(timeout=300) for f in masks]
+        sweeps = [f.result(timeout=300) for f in sweeps]
+    for (pos, spacing, analyze, extent), mask in zip(ranges, masks):
+        np.testing.assert_array_equal(mask, host(
+            pos, np.zeros(3), np.full(3, extent), spacing, analyze))
+    for got, (_, _, _, want) in zip(sweeps, jobs):
+        assert all(torch.equal(g, want) for g in got)
 
 
 def test_sweep_wrapper_checks_its_inputs(cuda):

@@ -149,10 +149,15 @@ def test_a_workspace_lists_the_buffers_of_each_part(parts):
     shapes = {"up": (3 * n,), "up_ana": (n,), "pos": (3 * n,),
               "planes": (3, n), "bj": (poisson_cuda.gate_capacity(nb),),
               "head": (2 + nb,), "counts": (nb * BLOCK,), "out": (n,),
-              "offsets": (nb * BLOCK + 1,)}
+              "offsets": (nb * BLOCK + 1,),
+              "gbox": (6 * poisson_cuda.prep_groups(nb),),
+              "gcount": (poisson_cuda.prep_groups(nb),), "ready": (1 + nb,),
+              "status": (nb,)}
     part_of = {"up": "host", "up_ana": "host", "pos": "upload",
                "planes": "prep", "bj": "prep", "head": "prep",
-               "counts": "k2", "out": "k2", "offsets": "k2"}
+               "counts": "k2", "out": "k2", "offsets": "k2",
+               "gbox": "prep", "gcount": "prep", "ready": "prep",
+               "status": "prep"}
     for name, shape in shapes.items():
         t = getattr(buf, name)
         if part_of[name] in parts:
@@ -161,6 +166,63 @@ def test_a_workspace_lists_the_buffers_of_each_part(parts):
             assert t is None, name
     assert buf.planes is None or buf.planes.dtype == torch.float32
     assert buf.offsets[0] == 0
+
+
+PREP_ONE = poisson_cuda.PREP_ONE_LAUNCH
+
+
+@pytest.mark.parametrize("n_blocks, launches", [
+    (0, 0), (1, 1), (8, 1), (200, 1), (PREP_ONE - 1, 1), (PREP_ONE, 1),
+    (PREP_ONE + 1, 2), (8192, 2), (10_723, 2)])
+def test_the_prep_takes_one_launch_up_to_its_limit(n_blocks, launches):
+    """One prep launch for a range of at most PREP_ONE_LAUNCH blocks (which
+    covers the main path's ranges of 8-200 blocks), two above, with a
+    group box per PREP_GROUP blocks."""
+    assert PREP_ONE >= 200
+    assert poisson_cuda.prep_launches_per_range(n_blocks) == launches
+    assert poisson_cuda.prep_groups(n_blocks) == max(
+        1, -(-n_blocks // poisson_cuda.PREP_GROUP))
+
+
+@pytest.mark.parametrize("n_blocks, grouped", [
+    (PREP_ONE + 1, False), (poisson_cuda.PREP_GROUPED_FROM - 1, False),
+    (poisson_cuda.PREP_GROUPED_FROM, True), (10_723, True)])
+def test_the_two_launch_prep_tests_group_boxes_from_its_limit(n_blocks,
+                                                              grouped):
+    """Above one launch the second launch tests every earlier block (a CTA
+    a row) up to PREP_GROUPED_FROM blocks, and group boxes first from
+    there (the root-sized ranges)."""
+    assert PREP_ONE < poisson_cuda.PREP_GROUPED_FROM <= 10_723
+    assert poisson_cuda.prep_grouped(n_blocks) is grouped
+    assert poisson_cuda.prep_launches_per_range(n_blocks) == 2
+
+
+@pytest.mark.parametrize("counted", [True, False])
+def test_the_prep_tickets_and_flags_start_at_zero(monkeypatch, counted):
+    """The prep's ticket, flags and status words are zero when their
+    buffers are made, even under the checker's poison, and a grown buffer
+    is zero again; each one-launch prep takes the workspace's next epoch,
+    and the flags are zeroed again when the epochs wrap."""
+    from schwarzwald_tpu_torch.ops import sanitize_kernels
+
+    monkeypatch.setattr(sanitize_kernels, "POISON", True)
+    ws = poisson_cuda._Workspace("cpu", counted=counted)
+    with sanitize_kernels.poisoned():
+        for n in (3000, 600_000, 3000):
+            buf = ws.arrays(n, "f64", False, ("prep",))
+            nb = -(-n // BLOCK)
+            assert buf.ready.numel() == 1 + nb and buf.status.numel() == nb
+            assert buf.gcount.numel() == poisson_cuda.prep_groups(nb)
+            assert not (buf.ready.any() or buf.status.any()
+                        or buf.gcount.any())
+    assert [ws.prep_epoch() for _ in range(3)] == [1, 2, 3]
+    last = poisson_cuda.PREP_EPOCHS - 1
+    ws._epoch = last - 1
+    buf.ready.fill_(7)
+    buf.status.fill_(7)
+    assert ws.prep_epoch() == last and buf.ready.eq(7).all()
+    assert ws.prep_epoch() == 1
+    assert not (buf.ready.any() or buf.status.any())
 
 
 # -- the range path on a workspace ------------------------------------------------

@@ -37,6 +37,38 @@ def test_sanitized_cases_are_phase_2_cases():
     assert names == set(sk.SANITIZED_CASES) and sk.THREADS_CASE in names
 
 
+def test_edge_and_gate_cases_sit_where_they_claim():
+    """The prep's edge cases: 1 block, and one launch's limit less one, at
+    it and one past it, and the group boxes' limit less one and at it; the
+    gate cases at and one past the pair gate's capacity, in one launch and
+    in two, a CTA a row and with group boxes."""
+    nbs = {c[0]: (-(-c[1].shape[0] // poisson_cuda.BLOCK), c[3] is not None)
+           for c in sk.poisson_cases(set(sk.EDGE_CASES))}
+    one = poisson_cuda.PREP_ONE_LAUNCH
+    assert nbs == {"uniform_300": (1, False),
+                   "analyze3_261532": (one - 1, True),
+                   "edge_262144": (one, False),
+                   "uniform_262145": (one + 1, False),
+                   "uniform_1637888": (poisson_cuda.PREP_GROUPED_FROM - 1,
+                                       False),
+                   "uniform_1637889": (poisson_cuda.PREP_GROUPED_FROM,
+                                       False)}
+    assert set(sk.EDGE_CASES) <= set(sk.SANITIZED_CASES)
+    launches = []
+    for name, pos, spacing in sk.gate_cases():
+        planes = torch.from_numpy(pos).t().contiguous()
+        nb = -(-pos.shape[0] // poisson_cuda.BLOCK)
+        _, bj = poisson_cuda.pair_csr_torch(
+            planes, poisson_cuda.inflation(spacing), 1 << 62)
+        cap = poisson_cuda.gate_capacity(nb)
+        assert bj.numel() == (cap if "at_limit" in name else cap + 1), name
+        launches.append((poisson_cuda.prep_launches_per_range(nb),
+                         poisson_cuda.prep_grouped(nb)))
+    assert [c[0] for c in sk.gate_cases()] == list(sk.GATE_CASES)
+    assert launches == [(1, False), (1, False), (2, False), (2, False),
+                        (2, True), (2, True)]
+
+
 def test_edge_coords_hold_the_one_hot_rows():
     axes = sk.edge_coords(1000, 1)
     oh = [1 << i for i in range(21)] + [0, (1 << 21) - 1]

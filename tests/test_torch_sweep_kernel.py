@@ -166,6 +166,37 @@ def test_the_packed_plan_is_the_kernels_layout():
     assert device_tiling._pack_plan([]).shape == (1, device_tiling.LEVEL_INTS)
 
 
+def test_the_deepest_plan_fits_the_kernels_plan_buffer():
+    """A plan runs from node level -1 to MAX_LEVELS - 1 at most
+    (MAX_PLAN_LEVELS levels, RANDOM_GRID reaches it); it goes to the kernel
+    in a device buffer of LEVEL_INTS int32 a level, so every depth fits,
+    and a deeper list raises."""
+    cands = device_tiling.candidate_levels(EXTENT, 17.43, 20)
+    plan = device_tiling.level_plan("RANDOM_GRID", cands, 20)
+    assert len(plan) == device_tiling.MAX_PLAN_LEVELS == 22
+    packed = device_tiling._pack_plan(plan)
+    assert packed.nbytes == 22 * device_tiling.LEVEL_INTS * 4
+    assert packed.flags.c_contiguous and packed.dtype == np.int32
+    assert [lv["node_level"] for lv in plan] == list(range(-1, 21))
+    with pytest.raises(ValueError, match="at most"):
+        device_tiling._pack_plan(plan + plan[-1:])
+
+
+def test_kernel_times_bins_ranges_by_blocks():
+    """The prep's per-range times by block count (bench_kernels.py
+    ranges): each range in the bin of its block count, empty bins left
+    out."""
+    import bench_kernels
+
+    rows = bench_kernels.by_blocks([(4096, 0.01, 1), (4097, 0.03, 1),
+                                   (102_400, 0.02, None),
+                                   (5_490_148, 0.4, 2)])
+    assert [(r["blocks"], r["ranges"], r["launches"]) for r in rows] == [
+        ("1-8", 1, 1), ("9-16", 1, 1), ("129-200", 1, None),
+        ("4097-2147483648", 1, 2)]
+    assert rows[0]["sum_ms"] == 0.01 and rows[-1]["max_ms"] == 0.4
+
+
 def test_sweep_cases_hold_what_they_promise():
     """The checker's X2 cases (phase 2 and 8 of chip_smoke.py): sorted keys,
     the mirrored pairs tie exactly at a GRID_CENTER pick, the re-root plan
